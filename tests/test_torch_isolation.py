@@ -1,0 +1,111 @@
+"""The PyTorch port stands alone: no module of mpnn_tpu_torch, and not
+chip_smoke.py, imports jax or mpnn_tpu; the package and its entry point run
+with jax blocked; the entry point refuses to run on the CPU unless asked."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PKG = os.path.join(REPO, "mpnn_tpu_torch")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imports(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_no_jax_or_mpnn_tpu_imports():
+    files = _port_files()
+    assert len(files) >= 15
+    bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "mpnn_tpu", "flax",
+                                  "optax")]
+    assert bad == []
+
+
+_BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
+              "sys.modules['mpnn_tpu'] = None; ")
+
+
+def _run(code, *args):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", _BLOCK_JAX + code, *args],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_import_with_jax_blocked():
+    r = _run("import mpnn_tpu_torch, mpnn_tpu_torch.ops.kernels, "
+             "mpnn_tpu_torch.models.infer, mpnn_tpu_torch.utils.serdes, "
+             "mpnn_tpu_torch.experiments, mpnn_tpu_torch.infer_bench, "
+             "mpnn_tpu_torch.data.synth; print('ok')")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_infer_bench_cpu_with_jax_blocked():
+    r = _run("import runpy, sys; sys.argv[0] = 'infer_bench'; "
+             "runpy.run_module('mpnn_tpu_torch.infer_bench', "
+             "run_name='__main__')",
+             "--device", "cpu", "--batch-size", "8", "--n-batches", "1",
+             "--precision", "fp32")
+    assert r.returncode == 0, r.stderr
+    recs = [json.loads(line) for line in r.stdout.splitlines()]
+    assert [r["metric"].split()[1] for r in recs] == ["(dense,", "(routed,"]
+    assert all(r["value"] > 0 and r["mean_ops_per_example"] > 0
+               and r["device"] == "cpu" for r in recs)
+
+
+def test_entry_point_refuses_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    from mpnn_tpu_torch.infer_bench import main
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--batch-size", "8", "--n-batches", "1"])
+
+
+def test_chip_smoke_refuses_without_gpu():
+    """No CUDA: the smoke test exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_ignore_lists_keep_served_checkpoint():
+    """.gitignore's results/ block and .chiprunignore list the same paths,
+    and neither drops the checkpoint that chip_smoke.py serves."""
+    def results_entries(name):
+        with open(os.path.join(REPO, name), encoding="utf-8") as f:
+            return [ln.strip() for ln in f
+                    if ln.strip().startswith("results/")]
+
+    git, chip = results_entries(".gitignore"), results_entries(".chiprunignore")
+    assert git and git == chip
+    served = "results/nets/hybrid-ac/0004.npy"
+    assert os.path.exists(os.path.join(REPO, served))
+    assert not [e for e in chip
+                if served == e or served.startswith(e.rstrip("/") + "/")]
