@@ -7,20 +7,36 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
 
 1. device  -- needs torch.cuda; prints the nvidia-smi name/power-limit line.
 2. build   -- builds the fused_mcm CUDA kernel with nvcc (ctypes-bound).
-3. kernel  -- for each of the flagship's eight MultiscaleConvMax stage
+3. grad    -- one stage (stage 1: four scales, 16 channels) at batch 64 in
+              fp32 through fused_mcm on the card: its outputs carry a
+              grad_fn, and its gradients for xs, whs, wvs and bs match
+              autograd through mcm_ref (max abs error <= 1e-4 * max|ref|).
+4. kernel  -- for each of the flagship's eight MultiscaleConvMax stage
               shapes at the serving batch, holds the kernel against its
               plain version mcm_ref in fp32 (TF32 off; max abs error <=
               1e-4 * max|ref|) and bf16 (<= 2e-2 * max|ref|), and times the
-              kernel, mcm_ref and the cuDNN conv sequence mcm_ref makes;
-              one ragged shape (widths 12/6/3, batch 7) is checked too.
-4. serve   -- reads the trained flagship checkpoint onto the GPU and runs
+              kernel, mcm_ref and the cuDNN conv sequence mcm_ref makes,
+              per call from Python (`ms`) and on the device alone (CUDA
+              graph replay, `device_ms`);
+              four shapes off the flagship's path are checked too (widths
+              12/6/3 at batch 7; output widths 12, 20 and 160; input
+              channels 3, 4 and 24), and
+              stages 4-7 at batch 32 (the routed engine's deep buffers) are
+              checked and timed in bf16. Each bf16 stage's error against
+              mcm_ref run in fp32 on the same bf16-valued inputs is printed
+              (not a gate).
+5. serve   -- reads the trained flagship checkpoint onto the GPU and runs
               routed inference (the port's main path) at capacity 1.0 and at
               calibrated capacities: first in fp32, kernel path against the
               same net through mcm_ref, then in bf16 (the main path) over
               5 timed windows of 20 batches per capacity, with img/s (median
               and spread of the windows) and mean realized ops per example.
               The kernel's launch count is set to 0 just before the bf16
-              serving and read just after; it must have risen.
+              serving and read just after; it must have risen. Before it,
+              bf16 dense serving through the kernel is compared with the
+              mcm_ref path: the exits that differ, and how many of them
+              have a deciding router margin below 1e-2, are printed (not a
+              gate).
 
 Then one {"kernels": [...]} line, and last the device record. Any failed
 phase raises and the script exits non-zero; it also exits non-zero, with no
@@ -29,7 +45,6 @@ result, where CUDA is absent or the port's package is not beside it."""
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 from unittest import mock
@@ -40,17 +55,16 @@ import torch
 T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s per type.
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 TOL = {"fp32": 1e-4, "bf16": 2e-2}  # max abs error / max|ref|
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 CHECKPOINT = os.path.join(HERE, "results", "nets", "hybrid-ac", "0004.npy")
 BATCH = 1024  # the serving batch, also the kernel check's batch
-N_TIMED = 25
+ROUTED_BATCH = 32  # rows of the routed engine's deep buffers
+GRAD_BATCH = 64
 N_SERVE = 20  # batches per timed serving window
 N_WINDOWS = 5  # timed serving windows per capacity
 MARGIN_TIE = 1e-3  # router top-2 logit margin below which exits may differ
+MARGIN_BF16 = 1e-2  # the margin reported for bf16 kernel vs plain exits
 
 
 def phase(name, ok=True, **fields):
@@ -64,77 +78,47 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def time_ms(fn, n=N_TIMED):
-    """Median device time of fn() in ms, by CUDA events around each call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def rel_err(outs, refs):
+    """max |out - ref| over max |ref|, over lists of tensors."""
+    err = max(float((o.float() - r.float()).abs().max())
+              for o, r in zip(outs, refs))
+    return err / max(float(r.float().abs().max()) for r in refs)
 
 
-def stage_inputs(arch, B, x_hw, seed, device, c_in=3):
-    """Per stage of `arch`: (pyramid input, whs, wvs, bs, n_ops) at batch B,
-    from a seeded numpy generator. Stage i's input pyramid is the shape of
-    stage i-1's output."""
-    from mpnn_tpu_torch.ops.layers import MultiscaleConvMax
-    rng = np.random.RandomState(seed)
-    shapes = [(x_hw // 2 ** i, x_hw // 2 ** i, c_in)
-              for i in range(len(arch[0]))]
-    stages = []
-    for n_chan in arch:
-        mcm = MultiscaleConvMax(n_chan=n_chan, supp=3)
-        mcm.build(shapes)
-        check(mcm._kernel_eligible(), "stage %s not kernel-eligible" % n_chan)
-        kept = shapes[len(shapes) - len(n_chan):]
+def grad_phase(device):
+    """fused_mcm's gradient on the card against autograd through mcm_ref,
+    fp32, one four-scale stage."""
+    from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.kernel_bench import stage_inputs
+    from mpnn_tpu_torch.ops.kernels import fused_mcm, mcm_ref
 
-        def arr(shape, scale):
-            a = (rng.standard_normal(shape) * scale).astype(np.float32)
-            return torch.as_tensor(a, device=device)
-
-        xs = [torch.relu(arr((B,) + tuple(s), 1.0)).contiguous()
-              for s in kept]
-        whs = [arr(s, 1.0 / 3 / np.sqrt(s[2])) for s in mcm._w_horz_shapes]
-        wvs = [arr(s, 1.0 / 3 / np.sqrt(s[2])) for s in mcm._w_vert_shapes]
-        bs = [arr((c,), 0.1) for c in n_chan]
-        stages.append((xs, whs, wvs, bs, mcm.n_ops))
-        shapes = mcm.out_shape
-    return stages
-
-
-def stage_cost(xs, whs, wvs, bs, n_ops, B, dt):
-    """(bytes, flops) the stage must move and compute: each input read once,
-    each output written once."""
-    esize = 4 if dt == "fp32" else 2
-    n_in = sum(x.numel() for x in xs) + sum(w.numel() for w in whs + wvs)
-    n_out = sum(x.shape[0] * x.shape[1] * x.shape[2] * w.shape[-1]
-                for x, w in zip(xs, whs))
-    n_bytes = esize * (n_in + n_out) + 4 * sum(b.numel() for b in bs)
-    return n_bytes, 2.0 * n_ops * B
-
-
-def conv_sequence(xs, whs, wvs, pooled):
-    """The cuDNN conv calls mcm_ref makes (pools precomputed)."""
-    from mpnn_tpu_torch.ops.layers import conv_same
-    outs = [conv_same(xs[0], whs[0])]
-    for j in range(1, len(whs)):
-        outs.append(conv_same(xs[j], whs[j]) + conv_same(pooled[j - 1],
-                                                         wvs[j - 1]))
-    return outs
+    xs, whs, wvs, bs, _ = stage_inputs(arch, GRAD_BATCH, 32, seed=3,
+                                       device=device)[1]
+    leaves = [t.requires_grad_() for t in xs + whs + wvs + bs]
+    n0 = fused_mcm.launches
+    out = fused_mcm(xs, whs, wvs, bs, 3)
+    check(fused_mcm.launches - n0 == len(whs),
+          "grad: the kernel did not take the forward")
+    check(all(o.grad_fn is not None for o in out),
+          "grad: fused_mcm's outputs carry no grad_fn")
+    rng = np.random.RandomState(4)
+    cot = [torch.as_tensor(rng.standard_normal(tuple(o.shape))
+                           .astype(np.float32), device=device) for o in out]
+    grads = torch.autograd.grad(out, leaves, cot)
+    ref = torch.autograd.grad(mcm_ref(xs, whs, wvs, bs), leaves, cot)
+    errs = [rel_err([g], [r]) for g, r in zip(grads, ref)]
+    check(max(errs) <= TOL["fp32"], "grad: max relative error %g > %g"
+          % (max(errs), TOL["fp32"]))
+    return {"stage": 1, "batch": GRAD_BATCH, "n_grads": len(leaves),
+            "max_rel_err": max(errs)}
 
 
 def kernel_phase(device):
     from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.kernel_bench import (bound, stage_cost, stage_inputs,
+                                             stage_times)
     from mpnn_tpu_torch.ops import config
     from mpnn_tpu_torch.ops.kernels import fused_mcm, mcm_ref
-    from mpnn_tpu_torch.ops.layers import _pool2
 
     def compare(label, xin, whs, wvs, bs, dt):
         out = fused_mcm(xin, whs, wvs, bs, 3)
@@ -148,54 +132,75 @@ def kernel_phase(device):
               "%s %s: output dtype/shape differs" % (label, dt))
         check(err <= TOL[dt] * scale, "%s %s: max abs err %g > %g * "
               "max|ref| %g" % (label, dt, err, TOL[dt], scale))
-        return ref, err, scale
+        return out, err, scale
 
-    B = BATCH
-    stages = stage_inputs(arch, B, 32, seed=1, device=device)
-    # Widths that are not a multiple of the kernel's 4-pixel step (6, 3),
-    # vector input channels (8) and an odd batch, checked only.
-    ragged = stage_inputs([[8, 8, 8]], 7, 12, seed=2, device=device,
-                          c_in=8)[0]
+    def fp32_ref_err(out, xin, whs, wvs, bs):
+        """The bf16 kernel against mcm_ref in fp32 on the same bf16-valued
+        inputs and weights: the error of bf16 serving itself."""
+        config.set_compute_dtype(None)
+        try:
+            ref = mcm_ref([x.float() for x in xin],
+                          [w.to(torch.bfloat16).float() for w in whs],
+                          [w.to(torch.bfloat16).float() for w in wvs], bs)
+        finally:
+            config.set_compute_dtype(torch.bfloat16)
+        return rel_err(out, ref)
+
+    # Shapes off the flagship's path, checked only: widths that are not a
+    # multiple of the fp32 kernel's 4-pixel step (6, 3) with an odd batch;
+    # output widths that are not a multiple of the bf16 kernel's 8-wide
+    # mma tiles (12, 20) or wider than one 128-channel block (160); input
+    # channel counts read one value at a time (4, 3) or as vectors (8, 24).
+    odd = [("ragged 12/6/3 stage", [[8, 8, 8]], 7, 12, 8),
+           ("c_out 12, c_in 4", [[12, 12]], 5, 8, 4),
+           ("c_out 160, c_in 24", [[160, 160]], 3, 8, 24),
+           ("c_out 20, c_in 3, 6/3", [[20, 20]], 9, 6, 3)]
+    odd = [(label, stage_inputs(a, b, hw, seed=2 + i, device=device,
+                                c_in=c)[0])
+           for i, (label, a, b, hw, c) in enumerate(odd)]
+    stages = list(enumerate(stage_inputs(arch, BATCH, 32, seed=1,
+                                         device=device)))
+    deep = list(enumerate(stage_inputs(arch, ROUTED_BATCH, 32, seed=1,
+                                       device=device)))[4:]
+    runs = ([(dt, BATCH, i, st) for dt in DTYPES for i, st in stages]
+            + [("bf16", ROUTED_BATCH, i, st) for i, st in deep])
     rows = []
     for dt, torch_dt in DTYPES.items():
         config.set_compute_dtype(torch_dt)
         try:
-            xs, whs, wvs, bs, _ = ragged
-            compare("ragged 12/6/3 stage", [x.to(torch_dt) for x in xs],
-                    whs, wvs, bs, dt)
-            for i, (xs, whs, wvs, bs, n_ops) in enumerate(stages):
+            for label, (xs, whs, wvs, bs, _) in odd:
+                compare(label, [x.to(torch_dt) for x in xs], whs, wvs, bs,
+                        dt)
+            for _, B, i, (xs, whs, wvs, bs, n_ops) in [
+                    r for r in runs if r[0] == dt]:
                 xin = [x.to(torch_dt) for x in xs]
-                ref, err, scale = compare("stage %d" % i, xin, whs, wvs, bs,
-                                          dt)
+                out, err, scale = compare("stage %d batch %d" % (i, B), xin,
+                                          whs, wvs, bs, dt)
+                n_bytes, flops = stage_cost(xin, whs, wvs, bs, n_ops, B, dt)
+                row = {"stage": i, "dtype": dt, "batch": B,
+                       "shape": [list(x.shape[1:]) for x in xs],
+                       "c_out": [int(w.shape[-1]) for w in whs],
+                       "max_abs_err": err, "max_abs_ref": scale,
+                       "bytes": n_bytes, "flops": flops}
+                if dt == "bf16":
+                    row["rel_err_vs_fp32_ref"] = fp32_ref_err(out, xin, whs,
+                                                              wvs, bs)
                 # Timed on weights already in the compute dtype, so the
                 # times hold compute only (the casts are then no-ops).
-                pooled = [_pool2(r) for r in ref[:-1]]
-                wc = [w.to(torch_dt) for w in whs]
-                vc = [w.to(torch_dt) for w in wvs]
-                n_bytes, flops = stage_cost(xin, whs, wvs, bs, n_ops, B, dt)
-                t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-                t_ops = flops / PEAK_FLOPS[dt] * 1e3
-                rows.append({
-                    "stage": i, "dtype": dt,
-                    "shape": [list(x.shape[1:]) for x in xs],
-                    "c_out": [int(w.shape[-1]) for w in whs],
-                    "max_abs_err": err, "max_abs_ref": scale,
-                    "ms": time_ms(lambda: fused_mcm(xin, wc, vc, bs, 3)),
-                    "plain_ms": time_ms(lambda: mcm_ref(xin, wc, vc, bs)),
-                    "cudnn_conv_sequence_ms": time_ms(
-                        lambda: conv_sequence(xin, wc, vc, pooled)),
-                    "bytes": n_bytes, "flops": flops,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                })
+                row.update(stage_times(xin, whs, wvs, bs))
+                row["bound_ms"], row["bound_by"] = bound(n_bytes, flops, dt)
+                rows.append(row)
         finally:
             config.set_compute_dtype(None)
-    for dt in DTYPES:
+    for dt, B in (("fp32", BATCH), ("bf16", BATCH), ("bf16", ROUTED_BATCH)):
         phase("kernel", dtype=dt, batch=B, stages=[
             {k: r[k] for k in ("stage", "shape", "c_out", "max_abs_err",
-                               "ms", "plain_ms", "cudnn_conv_sequence_ms",
-                               "bound_ms", "bound_by")}
-            for r in rows if r["dtype"] == dt])
+                               "rel_err_vs_fp32_ref", "ms", "plain_ms",
+                               "cudnn_conv_sequence_ms", "device_ms",
+                               "plain_device_ms",
+                               "cudnn_conv_sequence_device_ms", "bound_ms",
+                               "bound_by") if k in r}
+            for r in rows if r["dtype"] == dt and r["batch"] == B])
     return rows
 
 
@@ -293,6 +298,7 @@ def serve_phase(device):
 
     config.set_compute_dtype(torch.bfloat16)
     try:
+        drift = bf16_drift(net, params, state, x0)
         caps_bf16 = calibrate_capacities(net, params, state, x_cal)
         modes = [(mode, cap, make_routed_infer_fn(net, B, capacities=cap))
                  for mode, cap in (("dense", 1.0), ("routed", caps_bf16))]
@@ -340,7 +346,33 @@ def serve_phase(device):
         launches = fused_mcm.launches
     finally:
         config.set_compute_dtype(None)
-    return caps_bf16, records, launches
+    return caps_bf16, records, launches, drift
+
+
+def bf16_drift(net, params, state, x0):
+    """bf16 dense serving through the kernel against the same through
+    mcm_ref: the exits that differ, and how many of those have a deciding
+    router (any switch up to the first where the two paths part) whose
+    top-2 margin on the kernel path is below MARGIN_BF16. Printed, not a
+    gate: the two paths round at different places."""
+    margins = chain_margins(net, params, state, x0)
+    k = serve(net, params, state, x0, 1.0)
+    r = serve(net, params, state, x0, 1.0, reference=True)
+    n_sw = margins.shape[1]
+    depth = np.minimum(np.minimum(k["exit_idx"], r["exit_idx"]), n_sw - 1)
+    visited = np.arange(n_sw)[None, :] <= depth[:, None]
+    near_tie = (visited & (margins < MARGIN_BF16)).any(axis=1)
+    differ = k["exit_idx"] != r["exit_idx"]
+    same = ~differ
+    return {"capacity": 1.0, "examples": int(len(differ)),
+            "exit_mismatches": int(differ.sum()),
+            "exit_mismatches_margin_below": MARGIN_BF16,
+            "exit_mismatches_near_tie": int((differ & near_tie).sum()),
+            "near_tie_examples": int(near_tie.sum()),
+            "max_prob_err_same_exit": float(np.abs(
+                k["probs"].astype(np.float32)
+                - r["probs"].astype(np.float32))[same].max())
+            if same.any() else None}
 
 
 def main():
@@ -350,13 +382,11 @@ def main():
                          "this smoke test needs a CUDA GPU")
     sys.path.insert(0, HERE)
     import mpnn_tpu_torch  # noqa: F401 -- fails where the port is absent
+    from mpnn_tpu_torch.kernel_bench import bound, nvidia_smi
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     phase("device", kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
@@ -370,19 +400,23 @@ def main():
     phase("build", build_s=round(time.perf_counter() - t, 3), cached=cached,
           library=os.path.relpath(str(_build.library_path()), HERE))
 
-    # 3. kernel against its plain version, stage by stage
+    # 3. the kernel's gradient
+    phase("grad", **grad_phase(device))
+
+    # 4. kernel against its plain version, stage by stage
     rows = kernel_phase(device)
 
-    # 4. serve; the bf16 serving inside it is the main path, whose
+    # 5. serve; the bf16 serving inside it is the main path, whose
     # launches are counted from 0.
-    caps, records, launches = serve_phase(device)
+    caps, records, launches, drift = serve_phase(device)
     check(launches > 0, "fused_mcm was not launched while serving")
     phase("serve_bf16", batch=BATCH, calibrated_capacities=caps,
-          records=records, fused_mcm_launches=launches)
+          bf16_kernel_vs_plain=drift, records=records,
+          fused_mcm_launches=launches)
 
-    bf = [r for r in rows if r["dtype"] == "bf16"]
-    tot_bytes = sum(r["bytes"] for r in bf) / PEAK_BYTES_S * 1e3
-    tot_ops = sum(r["flops"] for r in bf) / PEAK_FLOPS["bf16"] * 1e3
+    bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
+    bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
+                               sum(r["flops"] for r in bf), "bf16")
     print(json.dumps({"kernels": [{
         "name": "fused_mcm",
         "route": "cuda",
@@ -395,11 +429,24 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in bf),
         "ms": sum(r["ms"] for r in bf),
         "plain_ms": sum(r["plain_ms"] for r in bf),
-        "bound_ms": max(tot_bytes, tot_ops),
-        "bound_by": "bytes" if tot_bytes >= tot_ops else "operations",
+        "timing": "ms, plain_ms and library_ms: CUDA events around one call "
+                  "from Python (median of 25), host work included; "
+                  "*device_ms: device time, CUDA graphs of 10 calls "
+                  "replayed between CUDA events",
+        "device_ms": sum(r["device_ms"] for r in bf),
+        "plain_device_ms": sum(r["plain_device_ms"] for r in bf),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": sum(r["cudnn_conv_sequence_ms"] for r in bf),
+        "library_device_ms": sum(r["cudnn_conv_sequence_device_ms"]
+                                 for r in bf),
         "library_call": "the cuDNN conv2d sequence mcm_ref makes "
                         "(2L-1 convs per stage, pools precomputed)",
+        "design": "bf16: mma.sync m16n8k16 implicit GEMM, BM=64 pixels x "
+                  "BN=16-128 channels a block, one tap x 16 channels a K "
+                  "step, three K steps staged in shared memory per "
+                  "barrier, one launch per output scale; fp32: FP32-pipe "
+                  "4x4 register tile",
         "stages": rows,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

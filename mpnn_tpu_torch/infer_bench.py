@@ -4,13 +4,16 @@
 Loads a trained chain-net checkpoint (or builds the flagship actor chain
 fresh from a seed) and measures dense evaluation (capacity 1.0: every
 example runs until its router exits it, with batch-wide buffers) and routed
-inference at the given or calibrated capacities. Prints one JSON line per
+inference at the given or calibrated capacities. Each mode is timed over
+--n-windows windows of --n-batches batches; `value` is the median of the
+windows' rates and `window_values` holds each. Prints one JSON line per
 mode. Runs on CUDA unless --device cpu is given.
 
     python -m mpnn_tpu_torch.infer_bench --checkpoint results/nets/hybrid-ac/0004.npy
 """
 
 import json
+import statistics
 import time
 from argparse import ArgumentParser
 
@@ -42,7 +45,11 @@ def main(argv=None):
     parser.add_argument("--k-cpt", type=float, default=None,
                         help="cost-of-compute price for dyn_k_cpt "
                              "checkpoints")
-    parser.add_argument("--n-batches", type=int, default=20)
+    parser.add_argument("--n-batches", type=int, default=20,
+                        help="batches per timed window")
+    parser.add_argument("--n-windows", type=int, default=5,
+                        help="timed windows per mode; the median is "
+                             "reported")
     parser.add_argument("--precision", choices=["fp32", "bf16"],
                         default="bf16")
     parser.add_argument("--device", default="cuda",
@@ -102,18 +109,22 @@ def main(argv=None):
         infer = make_routed_infer_fn(net, B, capacities=cap)
         out = infer(params, state, x0, args.k_cpt)  # warm-up
         _sync(device)
-        t0 = time.perf_counter()
-        for _ in range(args.n_batches):
-            out = infer(params, state, x0, args.k_cpt)
-        _sync(device)
-        dt = time.perf_counter() - t0
+        rates = []
+        for _ in range(args.n_windows):
+            t0 = time.perf_counter()
+            for _ in range(args.n_batches):
+                out = infer(params, state, x0, args.k_cpt)
+            _sync(device)
+            rates.append(args.n_batches * B / (time.perf_counter() - t0))
         ops = out["ops"].cpu().numpy()
         forced = out["forced"].cpu().numpy()
         rec = {
             "metric": "routed-inference (%s, capacity=%s)" % (
                 mode, "calibrated" if isinstance(cap, list) else cap),
-            "value": round(args.n_batches * B / dt, 1),
+            "value": statistics.median(rates),
             "unit": "images/sec/chip",
+            "window_values": rates,
+            "window_batches": args.n_batches,
             "mean_ops_per_example": float(ops.mean()),
             "forced_exits": int(forced.sum()),
             "forced_per_switch": forced.tolist(),

@@ -1,0 +1,163 @@
+"""Per-stage timing of the fused_mcm kernel on one GPU, against its plain
+version `mcm_ref` and the cuDNN conv sequence that `mcm_ref` makes; the
+helpers of chip_smoke.py's `kernel` phase.
+
+For each of the flagship's MultiscaleConvMax stage shapes (inputs from a
+seeded numpy generator), `stage_times` gives, for the kernel (`ms`),
+`mcm_ref` (`plain_ms`) and the cuDNN sequence (`cudnn_conv_sequence_ms`):
+
+- the call time (`*ms`): CUDA events around one call from Python, median
+  of 25 calls, host work included; where the device's work is shorter
+  than the host's, this is the host's time;
+- the device time (`*device_ms`): replays of a CUDA graph that holds 10
+  calls, between two CUDA events, per call, so no host work is in it;
+
+and `stage_cost` and `bound` give the stage's bound: the larger of its
+bytes (each input read once, each output written once) over 3.35 TB/s and
+its operations over the type's peak rate. The timers need a CUDA GPU."""
+
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s per type.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+N_TIMED = 25
+GRAPH_CALLS = 10  # calls captured in one timed CUDA graph
+GRAPH_REPLAYS = 20
+
+
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, n=N_TIMED):
+    """Median time of fn() in ms, by CUDA events around each call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn):
+    """Device time of fn() in ms: a CUDA graph of GRAPH_CALLS calls,
+    replayed GRAPH_REPLAYS times between two events, per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture, as CUDA graphs require
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (GRAPH_REPLAYS * GRAPH_CALLS)
+
+
+def stage_inputs(arch, B, x_hw, seed, device, c_in=3):
+    """Per stage of `arch`: (pyramid input, whs, wvs, bs, n_ops) at batch B,
+    from a seeded numpy generator. Stage i's input pyramid is the shape of
+    stage i-1's output."""
+    from .ops.layers import MultiscaleConvMax
+    rng = np.random.RandomState(seed)
+    shapes = [(x_hw // 2 ** i, x_hw // 2 ** i, c_in)
+              for i in range(len(arch[0]))]
+    stages = []
+    for n_chan in arch:
+        mcm = MultiscaleConvMax(n_chan=n_chan, supp=3)
+        mcm.build(shapes)
+        if not mcm._kernel_eligible():
+            raise ValueError("stage %s is not kernel-eligible" % n_chan)
+        kept = shapes[len(shapes) - len(n_chan):]
+
+        def arr(shape, scale):
+            a = (rng.standard_normal(shape) * scale).astype(np.float32)
+            return torch.as_tensor(a, device=device)
+
+        xs = [torch.relu(arr((B,) + tuple(s), 1.0)).contiguous()
+              for s in kept]
+        whs = [arr(s, 1.0 / 3 / np.sqrt(s[2])) for s in mcm._w_horz_shapes]
+        wvs = [arr(s, 1.0 / 3 / np.sqrt(s[2])) for s in mcm._w_vert_shapes]
+        bs = [arr((c,), 0.1) for c in n_chan]
+        stages.append((xs, whs, wvs, bs, mcm.n_ops))
+        shapes = mcm.out_shape
+    return stages
+
+
+def stage_cost(xs, whs, wvs, bs, n_ops, B, dt):
+    """(bytes, flops) the stage must move and compute: each input read once,
+    each output written once."""
+    esize = 4 if dt == "fp32" else 2
+    n_in = sum(x.numel() for x in xs) + sum(w.numel() for w in whs + wvs)
+    n_out = sum(x.shape[0] * x.shape[1] * x.shape[2] * w.shape[-1]
+                for x, w in zip(xs, whs))
+    n_bytes = esize * (n_in + n_out) + 4 * sum(b.numel() for b in bs)
+    return n_bytes, 2.0 * n_ops * B
+
+
+def bound(n_bytes, flops, dt):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def conv_sequence(xs, whs, wvs, pooled):
+    """The cuDNN conv calls mcm_ref makes (pools precomputed)."""
+    from .ops.layers import conv_same
+    outs = [conv_same(xs[0], whs[0])]
+    for j in range(1, len(whs)):
+        outs.append(conv_same(xs[j], whs[j]) + conv_same(pooled[j - 1],
+                                                         wvs[j - 1]))
+    return outs
+
+
+def stage_fns(xin, whs, wvs, bs):
+    """{prefix: fn} of the three timed versions of one stage, on inputs in
+    the compute dtype and weights cast to it once, so the timed calls hold
+    compute only."""
+    from .ops.kernels import fused_mcm, mcm_ref
+    from .ops.layers import _pool2
+    dt = xin[0].dtype
+    wc = [w.to(dt) for w in whs]
+    vc = [w.to(dt) for w in wvs]
+    pooled = [_pool2(r) for r in mcm_ref(xin, wc, vc, bs)[:-1]]
+    return {"": lambda: fused_mcm(xin, wc, vc, bs, 3),
+            "plain_": lambda: mcm_ref(xin, wc, vc, bs),
+            "cudnn_conv_sequence_": lambda: conv_sequence(xin, wc, vc,
+                                                          pooled)}
+
+
+def stage_times(xin, whs, wvs, bs):
+    """Call (`*ms`) and device (`*device_ms`) times of the three versions
+    of one stage."""
+    times = {}
+    for name, fn in stage_fns(xin, whs, wvs, bs).items():
+        times[name + "ms"] = time_ms(fn)
+        times[name + "device_ms"] = device_ms(fn)
+    return times

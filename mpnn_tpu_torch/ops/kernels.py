@@ -13,9 +13,15 @@ output scale, coarse-ward, on the current stream. On CPU tensors it
 computes the plain version `mcm_ref`. There is no fallback from the kernel
 to `mcm_ref`: a CUDA tensor either takes the kernel or raises.
 
+The stage is differentiable on both devices, as JAX's custom VJP makes it:
+the backward recomputes `mcm_ref` under autograd on the saved inputs (the
+counterpart of `_fused_mcm_bwd`, which differentiates `mcm_xla`). The conv
+is linear, so this is the exact derivative of the same function.
+
 `fused_mcm.launches` counts kernel launches (one per output scale)."""
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build, config
 from .layers import _pool2, conv_same
@@ -58,7 +64,8 @@ def _check(cond, msg):
 
 
 def fused_mcm(xs, whs, wvs, bs, supp):
-    """MCM stage: the CUDA kernel on CUDA tensors, `mcm_ref` on CPU tensors.
+    """MCM stage: the CUDA kernel on CUDA tensors, `mcm_ref` on CPU tensors,
+    with the gradient of `mcm_ref` on both.
 
     xs: pyramid (list of NHWC tensors; the last len(whs) scales are used),
     whs / wvs: HWIO horizontal / vertical weights, bs: biases, as in
@@ -68,9 +75,47 @@ def fused_mcm(xs, whs, wvs, bs, supp):
            and len(xs) >= L, "expected L horizontal weights, L-1 vertical "
            "weights, L biases and at least L input scales")
     kept = list(xs[len(xs) - L:])
-    tensors = kept + list(whs) + list(wvs) + list(bs)
+    return list(_FusedMCM.apply(L, supp, *kept, *whs, *wvs, *bs))
+
+
+def _split(L, tensors):
+    """(kept xs, whs, wvs, bs) from the flat tuple `_FusedMCM` takes."""
+    return (list(tensors[:L]), list(tensors[L:2 * L]),
+            list(tensors[2 * L:3 * L - 1]), list(tensors[3 * L - 1:]))
+
+
+class _FusedMCM(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or `mcm_ref` (CPU). Backward: autograd
+    through `mcm_ref` on the saved inputs. The lists go in flattened, as
+    `apply` takes tensors only as positional arguments."""
+
+    @staticmethod
+    def forward(ctx, L, supp, *tensors):
+        outs = _forward(*_split(L, tensors), supp)
+        ctx.L = L
+        ctx.save_for_backward(*tensors)
+        return tuple(outs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *gs):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            outs = mcm_ref(*_split(ctx.L, ins))
+            wrt = [t for t, n in zip(ins, need) if n]
+            grads = iter(torch.autograd.grad(outs, wrt, gs))
+        return (None, None, *[next(grads) if n else None for n in need])
+
+
+def _forward(kept, whs, wvs, bs, supp):
+    """The stage's outputs, without autograd: `mcm_ref` if every tensor is
+    on the CPU, else the kernel, one launch per output scale."""
+    L = len(whs)
+    tensors = kept + whs + wvs + bs
     if all(t.device.type == "cpu" for t in tensors):
-        return mcm_ref(xs, whs, wvs, bs)
+        return mcm_ref(kept, whs, wvs, bs)
     dev = kept[0].device
     _check(dev.type == "cuda" and all(t.device == dev for t in tensors),
            "tensors must all be on the CPU or all on one CUDA device, got "

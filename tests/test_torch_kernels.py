@@ -1,10 +1,11 @@
 """The port's MultiscaleConvMax stage (mpnn_tpu_torch.ops.kernels) against
 mpnn_tpu's, on the CPU: mcm_ref against mcm_xla and against the Pallas
 kernel run in interpret mode (the tests/test_kernels.py fixture, fp32 atol
-1e-5), bf16 compute against JAX under bf16, and the wrapper's dispatch: CPU
-tensors take mcm_ref, anything else takes the CUDA kernel or raises. The
-CUDA kernel itself runs only on a GPU; chip_smoke.py holds it against
-mcm_ref there."""
+1e-5), bf16 compute against JAX under bf16, fused_mcm's gradient against
+the custom VJP of JAX's fused_mcm, and the wrapper's dispatch: CPU tensors
+take mcm_ref, anything else takes the CUDA kernel or raises. The CUDA
+kernel itself runs only on a GPU; chip_smoke.py holds it and its gradient
+against mcm_ref there."""
 
 import numpy as np
 import jax
@@ -14,6 +15,7 @@ import torch
 
 from mpnn_tpu.ops import config as jconfig
 from mpnn_tpu.ops.kernels import _pack_w as j_pack_w
+from mpnn_tpu.ops.kernels import fused_mcm as j_fused_mcm
 from mpnn_tpu.ops.kernels import fused_mcm_forward, mcm_xla
 from mpnn_tpu_torch.ops import _build, kernels
 from mpnn_tpu_torch.ops import config as tconfig
@@ -119,6 +121,78 @@ def test_fused_mcm_on_cpu_takes_mcm_ref(monkeypatch):
     assert kernels.fused_mcm.launches == n0
 
 
+def test_fused_mcm_grads_match_jax_vjp():
+    """fused_mcm's backward (autograd through mcm_ref) against the custom
+    VJP of JAX's fused_mcm with the Pallas forward in interpret mode, on
+    the same inputs and cotangents, fp32. The pyramid's unused finest scale
+    gets a zero cotangent in JAX and no gradient in the port. Weight
+    gradients sum 2,048 products and reach |44|, where one fp32 step is
+    3.8e-6, so an rtol of 1e-6 stands beside the atol of 1e-5 (the
+    summation orders of the two libraries differ)."""
+    stage = _stage()
+    rng = np.random.RandomState(5)
+    L = len(stage[1])
+    ref = _ref(stage)
+    cots = [rng.randn(*o.shape).astype(np.float32) for o in ref]
+
+    def f(xs, whs, wvs, bs):
+        return j_fused_mcm(xs, whs, wvs, bs, 3, True)
+
+    _, vjp = jax.vjp(f, *[_jax(a) for a in stage])
+    gx, gwh, gwv, gb = vjp(_jax(cots))
+    np.testing.assert_array_equal(np.asarray(gx[0]), 0.0)
+
+    xs, whs, wvs, bs = [_torch(a) for a in stage]
+    leaves = xs[-L:] + whs + wvs + bs
+    for t in leaves:
+        t.requires_grad_()
+    out = kernels.fused_mcm(xs, whs, wvs, bs, 3)
+    assert all(o.grad_fn is not None for o in out)
+    grads = torch.autograd.grad(out, leaves, _torch(cots))
+    for g, j in zip(grads, list(gx[-L:]) + list(gwh) + list(gwv) + list(gb)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-5,
+                                   rtol=1e-6)
+
+
+def test_fused_mcm_gradient_skips_inputs_without_grad():
+    """Only the inputs that need a gradient get one; the weights' gradient
+    equals autograd through mcm_ref itself."""
+    xs, whs, wvs, bs = [_torch(a) for a in _stage()]
+    for w in whs:
+        w.requires_grad_()
+    out = kernels.fused_mcm(xs, whs, wvs, bs, 3)
+    loss = sum(o.square().sum() for o in out)
+    loss.backward()
+    got = [w.grad.clone() for w in whs]
+    ref = torch.autograd.grad(
+        sum(o.square().sum() for o in kernels.mcm_ref(xs, whs, wvs, bs)),
+        whs)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert all(t.grad is None for t in xs + wvs + bs)
+
+
+def test_fused_mcm_inference_mode_carries_no_graph(monkeypatch):
+    """Under torch.inference_mode (the routed engine) the outputs carry no
+    graph, equal mcm_ref, and the stage is computed once: nothing is
+    recomputed for a backward."""
+    stage = _stage()
+    ref = _ref(stage)
+    xs, whs, wvs, bs = [_torch(a) for a in stage]
+    for t in whs + wvs + bs:
+        t.requires_grad_()
+    calls = []
+    plain = kernels.mcm_ref
+    monkeypatch.setattr(kernels, "mcm_ref",
+                        lambda *a: calls.append(1) or plain(*a))
+    with torch.inference_mode():
+        out = kernels.fused_mcm(xs, whs, wvs, bs, 3)
+    assert len(calls) == 1
+    for o, r in zip(out, ref):
+        assert o.grad_fn is None and not o.requires_grad and o.is_inference()
+        assert torch.equal(o, r)
+
+
 def test_fused_mcm_non_cpu_tensors_do_not_fall_back():
     """A tensor that is not on the CPU never computes mcm_ref: it takes the
     CUDA kernel or raises (here: meta tensors, which the kernel refuses)."""
@@ -164,6 +238,22 @@ def test_kernel_source_is_plain_c_interface():
     assert "cpp_extension" not in (_build.SRC.parents[1] / "_build.py"
                                    ).read_text()
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_kernel_source_bf16_branch_uses_tensor_cores():
+    """The bf16 branch is the mma.sync implicit GEMM fed by ldmatrix, and
+    bf16 never reaches the FP32-pipe kernel; the plain C launcher stays."""
+    src = _build.SRC.read_text()
+    bf16 = src[src.index("// " + "-" * 64 + " bf16 ----"):
+               src.index("}  // namespace")]
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in bf16
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in bf16
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in bf16
+    launcher = src[src.index('extern "C" int mcm_scale_forward'):]
+    case_bf16 = launcher[launcher.index("case 1:"):
+                         launcher.index("default:")]
+    assert "launch_mma<" in case_bf16 and "launch_fp32" not in case_bf16
+    assert "mcm_scale_mma" not in launcher.split("case 1:")[0]
 
 
 def test_layer_takes_fused_path_for_eligible_shapes(monkeypatch):
