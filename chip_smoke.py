@@ -37,8 +37,33 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               mcm_ref path: the exits that differ, and how many of them
               have a deciding router margin below 1e-2, are printed (not a
               gate).
+6. train   -- the training step of the flagship actor chain, built fresh
+              from seed 0, at batch 128 (`make_train_step`: augmentation,
+              forward, routing, actor loss, gradients, TALR, momentum):
+              train_fp32_vs_plain takes one step from the same sampled and
+              augmented batch through the kernel and through mcm_ref
+              (patched in as serve() does) in fp32 and holds the loss (1e-5
+              relative), the BatchNorm running statistics (1e-4 in
+              ||kernel - plain|| / ||plain|| per leaf), the gradients and
+              the parameters after the step (1e-3 in the same norm over
+              the whole tree, 5e-2 per leaf: see TRAIN_TOL; the biases
+              right before a train-mode BatchNorm, whose exact gradient is
+              zero, must be below 1e-6 of the tree's norm on both paths)
+              against each other, with exactly 20 kernel launches per
+              forward (the stages' L sum to 20; the backward launches
+              none); the same comparison for a float64 stage rounded to
+              fp32 is printed as the yardstick of rounding alone.
+              train_fp32 and train_bf16 then each take 5 timed
+              windows of 20 steps (img/s, median and every window; the
+              loss finite at each window's end); the kernel's count is set
+              to 0 before each and must read 20 per step after it. bf16
+              also prints the kernel path's first-step loss against the
+              mcm_ref path's (not a gate).
+              The kernel phase holds and times the eight stages at the
+              training batch 128 too, fp32 and bf16.
 
-Then one {"kernels": [...]} line, and last the device record. Any failed
+Then one {"kernels": [...]} line (with the training main paths' launches
+in `train_launches`), and last the device record. Any failed
 phase raises and the script exits non-zero; it also exits non-zero, with no
 result, where CUDA is absent or the port's package is not beside it."""
 
@@ -60,7 +85,21 @@ DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 CHECKPOINT = os.path.join(HERE, "results", "nets", "hybrid-ac", "0004.npy")
 BATCH = 1024  # the serving batch, also the kernel check's batch
 ROUTED_BATCH = 32  # rows of the routed engine's deep buffers
+TRAIN_BATCH = 128  # the per-net training batch of bench.py
 GRAD_BATCH = 64
+N_TRAIN_STEPS = 20  # steps per timed training window
+# One fp32 train step, kernel path against mcm_ref path. The loss and the
+# BatchNorm statistics are continuous in the forward's rounding and are
+# held per leaf. The gradients (and the parameters they move) are not: a
+# few ReLU and 2x2 max-pool decisions flip between two fp32 forwards that
+# round differently, and each flip moves deep-stage gradient leaves by up
+# to ~1e-3. The phase prints the same comparison for a float64 stage
+# rounded to fp32 (more exact, not wrong) as the yardstick. So gradients
+# and parameters are held as a whole tree and, per leaf, to a bound that a
+# wrong leaf exceeds; the count of leaves past 1e-4 is printed.
+TRAIN_TOL = {"loss": 1e-5, "state": 1e-4, "tree": 1e-3, "leaf": 5e-2,
+             "zero_grad": 1e-6}
+DISCRETE_TOL = 1e-4
 N_SERVE = 20  # batches per timed serving window
 N_WINDOWS = 5  # timed serving windows per capacity
 MARGIN_TIE = 1e-3  # router top-2 logit margin below which exits may differ
@@ -160,9 +199,12 @@ def kernel_phase(device):
            for i, (label, a, b, hw, c) in enumerate(odd)]
     stages = list(enumerate(stage_inputs(arch, BATCH, 32, seed=1,
                                          device=device)))
+    train = list(enumerate(stage_inputs(arch, TRAIN_BATCH, 32, seed=1,
+                                        device=device)))
     deep = list(enumerate(stage_inputs(arch, ROUTED_BATCH, 32, seed=1,
                                        device=device)))[4:]
     runs = ([(dt, BATCH, i, st) for dt in DTYPES for i, st in stages]
+            + [(dt, TRAIN_BATCH, i, st) for dt in DTYPES for i, st in train]
             + [("bf16", ROUTED_BATCH, i, st) for i, st in deep])
     rows = []
     for dt, torch_dt in DTYPES.items():
@@ -192,7 +234,8 @@ def kernel_phase(device):
                 rows.append(row)
         finally:
             config.set_compute_dtype(None)
-    for dt, B in (("fp32", BATCH), ("bf16", BATCH), ("bf16", ROUTED_BATCH)):
+    for dt, B in (("fp32", BATCH), ("bf16", BATCH), ("fp32", TRAIN_BATCH),
+                  ("bf16", TRAIN_BATCH), ("bf16", ROUTED_BATCH)):
         phase("kernel", dtype=dt, batch=B, stages=[
             {k: r[k] for k in ("stage", "shape", "c_out", "max_abs_err",
                                "rel_err_vs_fp32_ref", "ms", "plain_ms",
@@ -375,6 +418,214 @@ def bf16_drift(net, params, state, x0):
             if same.any() else None}
 
 
+def _leaves(tree, path=()):
+    """[(path, tensor)] of a params-shaped tree."""
+    if isinstance(tree, dict):
+        return [e for k, v in tree.items() for e in _leaves(v, path + (k,))]
+    if isinstance(tree, list):
+        return [e for i, v in enumerate(tree) for e in _leaves(v, path + (i,))]
+    return [(path, tree)]
+
+
+def zero_grad_paths(net):
+    """Paths of the biases right before a train-mode BatchNorm: a dense
+    layer's bias, and a MultiscaleConvMax's last-scale bias (its coarser
+    scales' biases also reach the next scale through a zero-padded vertical
+    conv). BN subtracts the batch mean, so their exact gradient is zero."""
+    from mpnn_tpu_torch.ops import layers as L
+    out = set()
+
+    def chain(layer, path):
+        nxt = layer.comps[1:] + [None]
+        for i, (c, n) in enumerate(zip(layer.comps, nxt)):
+            if isinstance(n, (L.BatchNorm, L.MultiscaleBatchNorm)):
+                if isinstance(c, L.LinTrans):
+                    out.add(path + ("comps", i, "b"))
+                elif isinstance(c, L.MultiscaleConvMax):
+                    out.add(path + ("comps", i, "b_%d" % (c._L - 1)))
+
+    def node(n, path):
+        chain(n, path + ("layer",))
+        if n.router is not None:
+            chain(n.router, path + ("router",))
+        for i, snk in enumerate(n.sinks):
+            node(snk, path + ("sinks", i))
+
+    node(net.root, ())
+    return out
+
+
+def tree_errs(tree, ref, zero_paths=frozenset()):
+    """Errors of `tree` against `ref` over the leaves outside zero_paths:
+    ||tree - ref|| / ||ref|| of the whole tree, and per leaf the largest
+    such ratio, its path and how many leaves exceed DISCRETE_TOL; over
+    the leaves in zero_paths, the largest max(||tree||, ||ref||) / ||ref
+    tree||."""
+    a, b = _leaves(tree), _leaves(ref)
+    check([p for p, _ in a] == [p for p, _ in b], "trees differ in shape")
+    total = float(torch.sqrt(sum(torch.sum(r.double() ** 2) for _, r in b)))
+    num = den = 0.0
+    worst, worst_path, n_over, zero = 0.0, None, 0, 0.0
+    for (path, t), (_, r) in zip(a, b):
+        t, r = t.double(), r.double()
+        if path in zero_paths:
+            zero = max(zero, max(float(t.norm()), float(r.norm())) / total)
+            continue
+        d, n = float((t - r).norm()), float(r.norm())
+        num, den = num + d * d, den + n * n
+        # A structurally zero gradient (an unused scale, a router behind
+        # a zero-initialized layer) must be zero on both paths.
+        e = d / n if n else (0.0 if d == 0 else float("inf"))
+        n_over += e > DISCRETE_TOL
+        if e > worst:
+            worst, worst_path = e, path
+    return {"tree": (num / den) ** 0.5, "leaf": worst,
+            "worst_leaf": "/".join(map(str, worst_path or ())),
+            "leaves_over_%g" % DISCRETE_TOL: n_over, "zero_grad": zero}
+
+
+def _plain_stage(xs, whs, wvs, bs, supp):
+    from mpnn_tpu_torch.ops.kernels import mcm_ref
+    return mcm_ref(xs, whs, wvs, bs)
+
+
+def _float64_stage(xs, whs, wvs, bs, supp):
+    """mcm_ref in float64, rounded to fp32 at the stage's outputs: another,
+    more exact implementation of the stage."""
+    from mpnn_tpu_torch.ops.kernels import mcm_ref
+    outs = mcm_ref(*([t.double() for t in ts] for ts in (xs, whs, wvs, bs)))
+    return [o.float() for o in outs]
+
+
+def train_once(net, params, state, vel, data, stage=None):
+    """One training step of the flagship from the generator seed 0, through
+    the kernel, or through `stage` patched in for fused_mcm: the loss,
+    gradients and launches of `loss_and_grads`, then the whole step's
+    params, state and launches."""
+    from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import (Schedules, _step_pieces,
+                                             make_train_step)
+    from mpnn_tpu_torch.ops import kernels
+    from mpnn_tpu_torch.utils.tree import tree_map
+    counter = kernels.fused_mcm
+    sched = Schedules(lr=λ_lrn, tau=τ_ds)
+    batch_ctx, loss_and_grads = _step_pieces(net, TRAIN_BATCH, sched, 4,
+                                             False)
+    step = make_train_step(net, TRAIN_BATCH, sched)
+    params, vel = (tree_map(torch.clone, t) for t in (params, vel))
+    with mock.patch.object(kernels, "fused_mcm", stage or counter):
+        n0 = counter.launches
+        gen = torch.Generator(device=data[0].device).manual_seed(0)
+        xb, yb, ctx = batch_ctx(0, gen, *data, None)
+        loss, _, _, grads = loss_and_grads(params, state, xb, yb, ctx)
+        n1 = counter.launches
+        gen = torch.Generator(device=data[0].device).manual_seed(0)
+        params, state, vel, _ = step(params, state, vel, 0, gen, *data)
+        torch.cuda.synchronize()
+        n2 = counter.launches
+    return {"loss": float(loss), "grads": grads, "params": params,
+            "state": state, "launches": (n1 - n0, n2 - n1)}
+
+
+def train_vs_plain_phase(device):
+    """One fp32 step through the kernel against the same through mcm_ref."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.ops import config
+    config.set_compute_dtype(None)
+    net, params, state, vel = train_bench.build(0, device)
+    data = train_bench.train_data(net, device)
+    k = train_once(net, params, state, vel, data)
+    r = train_once(net, params, state, vel, data, _plain_stage)
+    f64 = train_once(net, params, state, vel, data, _float64_stage)
+    per_fwd = sum(len(a) for a in arch)
+    check(k["launches"] == (per_fwd, per_fwd) and r["launches"] == (0, 0),
+          "train: kernel launches per forward %s, expected %d (plain path "
+          "%s)" % (k["launches"], per_fwd, r["launches"]))
+    loss_err = abs(k["loss"] - r["loss"]) / abs(r["loss"])
+    zero = zero_grad_paths(net)
+    errs = {"gradient": tree_errs(k["grads"], r["grads"], zero),
+            "parameter": tree_errs(k["params"], r["params"], zero),
+            "BatchNorm statistic": tree_errs(k["state"], r["state"])}
+    # Not a gate: the same comparison for a float64 stage, which rounds
+    # differently from the plain path without being wrong.
+    baseline = {"loss_rel_err": abs(f64["loss"] - r["loss"]) / abs(r["loss"]),
+                "gradient": tree_errs(f64["grads"], r["grads"], zero),
+                "parameter": tree_errs(f64["params"], r["params"], zero)}
+    check(loss_err <= TRAIN_TOL["loss"], "train: loss %g vs %g"
+          % (k["loss"], r["loss"]))
+    check(errs["BatchNorm statistic"]["leaf"] <= TRAIN_TOL["state"],
+          "train: BatchNorm statistic error %g > %g"
+          % (errs["BatchNorm statistic"]["leaf"], TRAIN_TOL["state"]))
+    for name in ("gradient", "parameter"):
+        for key in ("tree", "leaf", "zero_grad"):
+            check(errs[name][key] <= TRAIN_TOL[key], "train: %s %s error "
+                  "%g > %g (worst leaf %s)" % (name, key, errs[name][key],
+                                               TRAIN_TOL[key],
+                                               errs[name]["worst_leaf"]))
+    return {"batch": TRAIN_BATCH, "loss": k["loss"], "loss_plain": r["loss"],
+            "loss_rel_err": loss_err, "errors": errs, "tolerances": TRAIN_TOL,
+            "float64_stage_vs_plain": baseline,
+            "n_leaves": len(_leaves(k["grads"])),
+            "launches_per_forward": per_fwd}
+
+
+def train_phase(device, precision):
+    """The training main path in one precision: a warm-up step and timed
+    windows of N_TRAIN_STEPS steps, the kernel's count from 0."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.experiments import arch, λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import Schedules, make_train_step
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    config.set_compute_dtype(DTYPES[precision])
+    try:
+        net, params, state, vel = train_bench.build(0, device)
+        data = train_bench.train_data(net, device)
+        extra = {}
+        if precision == "bf16":
+            r = train_once(net, params, state, vel, data, _plain_stage)
+            extra["bf16_first_loss_plain"] = r["loss"]
+        step = make_train_step(net, TRAIN_BATCH,
+                               Schedules(lr=λ_lrn, tau=τ_ds))
+        gen = torch.Generator(device=device).manual_seed(0)
+        # The main path: the kernel's count starts from 0 here and is read
+        # just after the last step.
+        fused_mcm.launches = 0
+        params, state, vel, c = step(params, state, vel, 0, gen, *data)
+        loss_first, t = float(c), 0
+        rates, losses = [], []
+        for _ in range(N_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(N_TRAIN_STEPS):
+                t += 1
+                params, state, vel, c = step(params, state, vel, t, gen,
+                                             *data)
+            torch.cuda.synchronize()
+            rates.append(N_TRAIN_STEPS * TRAIN_BATCH
+                         / (time.perf_counter() - t0))
+            losses.append(float(c))
+        launches = fused_mcm.launches
+    finally:
+        config.set_compute_dtype(None)
+    check(all(np.isfinite(losses)) and np.isfinite(loss_first),
+          "train %s: loss not finite: %s" % (precision, losses))
+    n_steps = 1 + N_WINDOWS * N_TRAIN_STEPS
+    per_fwd = sum(len(a) for a in arch)
+    check(launches == per_fwd * n_steps, "train %s: %d launches in %d "
+          "steps, expected %d a step" % (precision, launches, n_steps,
+                                         per_fwd))
+    if precision == "bf16":
+        extra["bf16_first_loss_kernel"] = loss_first
+    return {"batch": TRAIN_BATCH, "metric": "train-step (%s, batch %d)"
+            % (precision, TRAIN_BATCH), "value": statistics.median(rates),
+            "unit": "images/sec", "window_values": rates,
+            "window_steps": N_TRAIN_STEPS, "loss_first": loss_first,
+            "loss_window_ends": losses, "fused_mcm_launches": launches,
+            "steps": n_steps, **extra}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -414,6 +665,13 @@ def main():
           bf16_kernel_vs_plain=drift, records=records,
           fused_mcm_launches=launches)
 
+    # 6. train: the kernel against mcm_ref for one step, then the training
+    # main path in each precision, its launches counted from 0.
+    phase("train_fp32_vs_plain", **train_vs_plain_phase(device))
+    train = {dt: train_phase(device, dt) for dt in ("fp32", "bf16")}
+    for dt, rec in train.items():
+        phase("train_" + dt, **rec)
+
     bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
     bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
                                sum(r["flops"] for r in bf), "bf16")
@@ -423,6 +681,8 @@ def main():
         "source": "mpnn_tpu_torch/ops/csrc/fused_mcm.cu",
         "replaces": "mpnn_tpu/ops/kernels.py:125",
         "launches": launches,
+        "train_launches": {dt: r["fused_mcm_launches"]
+                           for dt, r in train.items()},
         "dtype": "bf16",
         "work": "the eight flagship stages, batch %d, one call each"
                 % BATCH,

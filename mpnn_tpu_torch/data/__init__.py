@@ -1,3 +1,3 @@
-from . import synth
+from . import augment, synth
 
-__all__ = ["synth"]
+__all__ = ["augment", "synth"]

@@ -1,6 +1,7 @@
-"""Architectures and net constructors of the served flagship (counterpart
-of `mpnn_tpu/experiments.py:23-150`): the reference's constants and
-component builders, so a fresh flagship can be built."""
+"""Architectures, training constants and net constructors of the flagship
+(counterpart of `mpnn_tpu/experiments.py:23-150`): the reference's
+constants, schedules and component builders, so a fresh flagship can be
+built and trained."""
 
 from .models import ActorNet
 from .ops.layers import (
@@ -10,6 +11,7 @@ from .ops.layers import (
 conv_supp = 3
 router_n_chan = 16
 
+k_cpts = [0.0, 1e-9, 2e-9, 4e-9, 8e-9, 1.6e-8, 3.2e-8, 6.4e-8]
 k_l2 = 1e-4
 σ_w = 1
 
@@ -23,6 +25,15 @@ arch = [
     [64, 64],
     [128],
     [128]]
+
+# Training hyperparameters (`mpnn_tpu/experiments.py:47-53`); the actor
+# chains train with τ_ds, the critic chains with τ_cr.
+n_iter = 80000
+t_log = 2500
+
+λ_lrn = lambda t: 0.1 / 2 ** (t / 10000)  # noqa: E731
+τ_cr = lambda t: 0.1 / 2 ** (t / 20000)  # noqa: E731
+τ_ds = lambda t: 1 / 2 ** (t / 20000)  # noqa: E731
 
 
 def router(n_sinks):

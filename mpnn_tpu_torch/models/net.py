@@ -1,5 +1,6 @@
 """Net base class: a static routing tree over layers (counterpart of
-`mpnn_tpu/models/net.py`).
+`mpnn_tpu/models/net.py`). `forward` runs the whole tree densely and returns
+a per-node record table, from which each net type assembles its loss.
 
 Parameters and state are nested dicts of tensors that mirror the tree, one
 dict per tree node:
@@ -7,23 +8,38 @@ dict per tree node:
     node_params = {"layer": <layer params>, "router": <router params or {}>,
                    "sinks": [child node_params...]}
 
-and identically for state. The congruent-subtree stack plan of `mpnn_tpu`
-is not ported: routed inference walks the tree node by node."""
+and identically for state. The congruent-subtree stack plan and the packed
+layouts of `mpnn_tpu` are not ported: the net walks the tree node by node."""
 
+import itertools
 import unicodedata
 from types import SimpleNamespace as Ns
 
 
+from ..ops import config
 from ..ops.layers import NoOp, nfkc_hypers
+from ..utils.tree import tree_map
 
 
 class Ctx(Ns):
-    """Per-call context: `train` (only False is served), routing
-    temperature `tau`, exploration `eps` and the cost-of-compute price
-    `k_cpt` (a float or a tensor)."""
+    """Per-call context: `train` (BatchNorm uses batch moments and updates
+    its running statistics), routing temperature `tau`, exploration `eps`
+    and the cost-of-compute price `k_cpt` (a float, or a (B,) tensor)."""
 
     def __init__(self, train=False, tau=1.0, eps=1e-6, k_cpt=0.0):
         super().__init__(train=train, tau=tau, eps=eps, k_cpt=k_cpt)
+
+
+class Rec(Ns):
+    """Per-node forward record: the node's output `x`, its loss terms, its
+    router's logits (fp32) and penalty, and the routing probabilities that
+    `routing.propagate` fills in."""
+
+    def __init__(self):
+        super().__init__(
+            x=None, c_err=0.0, c_mod=0.0, delta_cor=None,
+            router_x=None, router_c_mod=0.0,
+            p_tr=None, p_ev=None, pi_tr=None, pi_ev=None)
 
 
 def n_leaves(layer):
@@ -41,18 +57,20 @@ def _subtree_nodes(node):
     return out
 
 
+def _all_sublayers(layer):
+    """Every Layer object reachable from `layer` through comps and router
+    (not sinks): the unit whose params share one TALR scale."""
+    yield layer
+    for c in layer.comps:
+        yield from _all_sublayers(c)
+    if layer.router is not None:
+        yield from _all_sublayers(layer.router)
+
+
 def _hyper(net, name, default):
     """Hyper lookup by name, NFKC-normalized as Python normalizes the
     identifier of a kwarg (ϵ U+03F5 is stored as ε U+03B5)."""
     return getattr(net.hypers, unicodedata.normalize("NFKC", name), default)
-
-
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
 
 
 class Net:
@@ -78,6 +96,16 @@ class Net:
                 build_node(s, node.out_shape)
 
         build_node(self.root, tuple(self.hypers.x0_shape))
+
+        # Stable integer uids for every layer object, assigned after build
+        # (so build-created comps such as MultiscaleBatchNorm's count), in
+        # the order mpnn_tpu assigns them: tree nodes in preorder, each
+        # followed by its comps and router. They key stats and TALR.
+        counter = itertools.count()
+        for node in self.layers:
+            for sub in _all_sublayers(node):
+                sub._uid = next(counter)
+        self._n_leaves_root = n_leaves(self.root)
 
     @property
     def layers(self):
@@ -115,7 +143,8 @@ class Net:
             return p, s
 
         params, state = init_node(self.root, tuple(self.hypers.x0_shape))
-        return _tree_to(params, device), _tree_to(state, device)
+        return (tree_map(lambda t: t.to(device), params),
+                tree_map(lambda t: t.to(device), state))
 
     def _router_input(self, x, ctx):
         """A node's output as its router's input; identity here."""
@@ -137,3 +166,32 @@ class Net:
             o["router_c_mod"] = r_aux.c_mod
             ns["router"] = ns_rtr
         return o, ns
+
+    def forward(self, params, state, x0, y, ctx):
+        """Run the whole tree densely; returns ({node: Rec}, new_state).
+
+        Under a bf16 compute policy the input is cast to bf16 here and
+        activations stay bf16 through the tree; router logits are recorded
+        in fp32 (`_apply_one`)."""
+        if config.compute_dtype is not None:
+            x0 = x0.to(config.compute_dtype)
+        recs = {}
+
+        def fwd(node, p, s, x):
+            o, ns = self._apply_one(node, p, s, x, y, ctx)
+            recs[node] = Rec()
+            vars(recs[node]).update(o)
+            for i, snk in enumerate(node.sinks):
+                ns["sinks"].append(
+                    fwd(snk, p["sinks"][i], s["sinks"][i], o["x"]))
+            return ns
+
+        return recs, fwd(self.root, params, state, x0)
+
+    def loss(self, recs, batch_size, ctx):
+        """The scalar training loss from forward records; fills p_tr / p_ev
+        on the records. Subclasses implement it."""
+        raise NotImplementedError
+
+    # Whether the train step applies TALR and α_rtr gradient scaling.
+    uses_expectation_optimizer = False

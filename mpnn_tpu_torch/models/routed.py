@@ -12,6 +12,16 @@ from ..ops.layers import _prod
 class DynRoutedMixin:
     """Mixin for Net subclasses with routers and optional dyn_k_cpt."""
 
+    def route_for_stats(self, recs, batch_size, ctx):
+        """Fill p_tr / p_ev on every Rec for the stats pass; a globopt
+        actor routes by the bare softmax policy here too."""
+        from .routing import propagate
+        return propagate(self, recs, batch_size, ctx.tau, ctx.eps,
+                         mixture=not getattr(self.hypers, "globopt", False))
+
+    def router_n_ops(self, node):
+        return node.router.n_ops if node.router is not None else 0.0
+
     def _router_in_shape(self, node):
         if not self.hypers.dyn_k_cpt:
             return node.out_shape

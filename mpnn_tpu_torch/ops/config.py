@@ -13,6 +13,19 @@ import torch
 
 compute_dtype = None  # None => float32 everywhere
 
+# Analytic L2: when True, LinTrans and MultiscaleConvMax leave their
+# c_mod = k_l2 * sum((w - w_eq)^2) out of the forward; the train step adds
+# the same gradient 2 * k_l2 * (w - w_eq), weighted by the node's mean p_tr
+# as the sg(p_tr)-weighted loss term would be, and the loss value with one
+# reduction per weight (models/optim.py:tree_l2_decay). Gradients and loss
+# are equal either way.
+analytic_l2 = False
+
+
+def set_analytic_l2(flag):
+    global analytic_l2
+    analytic_l2 = bool(flag)
+
 
 def set_compute_dtype(dtype):
     """Set the global compute dtype (None, torch.float32 or torch.bfloat16)."""

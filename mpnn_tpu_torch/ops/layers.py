@@ -1,5 +1,5 @@
-"""The layers of the served routing nets (counterpart of
-`mpnn_tpu/ops/layers.py`).
+"""The layers of the routing nets, for training and serving (counterpart
+of `mpnn_tpu/ops/layers.py`).
 
 A layer object is static configuration (hypers plus tree links `router` /
 `sinks` / `comps`). Parameters and BatchNorm running statistics live in
@@ -21,7 +21,9 @@ the checkpoint schema (`w_horz_i`, `w_vert_i`, `b_i`, `w`, `b`, `γ`, `β`,
 
 `y=None` asks for no loss terms: error layers and weight penalties skip
 their `c_err` / `c_mod` work. Routed inference passes None, since eager
-PyTorch would otherwise compute terms that nothing reads."""
+PyTorch would otherwise compute terms that nothing reads. Weight penalties
+are also skipped under `config.analytic_l2`, where the train step adds
+their gradient itself (`l2_specs`)."""
 
 import math
 import unicodedata
@@ -124,6 +126,12 @@ class Layer:
         self.out_shape = None
         self.n_ops = 0.0
 
+    def l2_specs(self):
+        """param name -> (k_l2, w_eq) for weights whose c_mod is the L2
+        penalty against w_eq (None means zero); read by the analytic-L2
+        update (models/optim.py:tree_l2_decay)."""
+        return {}
+
     def build(self, x_shape):
         self.out_shape = x_shape
         self.n_ops = 0.0
@@ -169,11 +177,17 @@ class LinTrans(Layer):
     def apply(self, params, state, x, y, ctx):
         w = params["w"]
         out = _bias_add(_matmul(x.reshape(x.shape[0], -1), w), params["b"])
-        if y is None:
+        if y is None or config.analytic_l2:
             return out, state, Aux()
-        c_mod = self.hypers.k_l2 * torch.sum(
-            torch.square(w - self._w_eq.to(w.device)))
+        # w_eq is 0 unless res: skip the subtraction (and its host-to-device
+        # copy) where it changes nothing.
+        d = w - self._w_eq.to(w.device) if self.hypers.res else w
+        c_mod = self.hypers.k_l2 * torch.sum(torch.square(d))
         return out, state, Aux(c_mod=c_mod)
+
+    def l2_specs(self):
+        return {"w": (float(self.hypers.k_l2),
+                      self._w_eq if self.hypers.res else None)}
 
 
 class Rect(Layer):
@@ -212,14 +226,16 @@ class ToPyramid(Layer):
 
     def apply(self, params, state, x, y, ctx):
         out = []
-        nchw = x.permute(0, 3, 1, 2)
+        # Resized in fp32 and rounded once to the input's dtype (the CPU
+        # has no bf16 antialiased resize).
+        nchw = x.permute(0, 3, 1, 2).float()
         for (h, w, c) in self.out_shape:
             if (h, w) == tuple(x.shape[1:3]):
                 out.append(x)
             else:
                 r = F.interpolate(nchw, size=(h, w), mode="bilinear",
                                   align_corners=False, antialias=True)
-                out.append(r.permute(0, 2, 3, 1).contiguous())
+                out.append(r.permute(0, 2, 3, 1).to(x.dtype).contiguous())
         return out, state, Aux()
 
 
@@ -304,11 +320,17 @@ class MultiscaleConvMax(Layer):
                             h.supp)
         else:
             out = mcm_ref(x, whs, wvs, bs)
-        if y is None:
+        if y is None or config.analytic_l2:
             return out, state, Aux()
         c_mod = h.k_l2 * (sum(torch.sum(torch.square(w)) for w in whs)
                           + sum(torch.sum(torch.square(w)) for w in wvs))
         return out, state, Aux(c_mod=c_mod)
+
+    def l2_specs(self):
+        k2 = float(self.hypers.k_l2)
+        specs = {f"w_horz_{j}": (k2, None) for j in range(self._L)}
+        specs.update({f"w_vert_{j}": (k2, None) for j in range(self._L - 1)})
+        return specs
 
 
 class MultiscaleRect(Layer):
@@ -340,9 +362,12 @@ class Select(Layer):
 ################################################################################
 
 class BatchNorm(Layer):
-    """Batch normalization with running statistics; γ/β are params, m_avg /
-    v_avg state. Only the eval branch (running statistics) is ported; the
-    train branch comes with training."""
+    """Batch normalization with EMA running statistics (decay d); γ/β are
+    params, m_avg / v_avg state. Train mode (`ctx.train`) normalizes with
+    the batch moments, taken in fp32 whatever the activation dtype, with
+    the biased variance E[x²] - m² (not `nn.BatchNorm2d`'s), and updates
+    the EMA from the moments without their gradient. Eval mode normalizes
+    with the running statistics and leaves them as they are."""
 
     default_hypers = dict(d=0.9, ϵ=1e-6)
 
@@ -360,11 +385,18 @@ class BatchNorm(Layer):
         return {"m_avg": torch.zeros(n), "v_avg": torch.ones(n)}
 
     def apply(self, params, state, x, y, ctx):
-        if ctx.train:
-            raise NotImplementedError(
-                "BatchNorm train mode is not ported yet (training slice)")
         h = self.hypers
-        m, v = state["m_avg"], state["v_avg"]
+        if ctx.train:
+            xf = x.float()
+            dims = tuple(range(x.dim() - 1))
+            m = torch.mean(xf, dims)
+            v = torch.mean(torch.square(xf), dims) - torch.square(m)
+            state = {
+                "m_avg": h.d * state["m_avg"] + (1 - h.d) * m.detach(),
+                "v_avg": h.d * state["v_avg"] + (1 - h.d) * v.detach(),
+            }
+        else:
+            m, v = state["m_avg"], state["v_avg"]
         if x.dtype == torch.float32:
             out = params["γ"] * (x - m) / torch.sqrt(v + h.ϵ) + params["β"]
         else:

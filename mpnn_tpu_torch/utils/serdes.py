@@ -19,6 +19,7 @@ import torch
 
 from ..ops import layers as layer_lib
 from ..models import actor as actor_lib
+from .tree import tree_map
 
 __all__ = ["decode_net", "read_net", "from_numpy_tree"]
 
@@ -31,17 +32,15 @@ _LAYER_TYPES = {name: getattr(layer_lib, name) for name in (
 _NET_TYPES = {"ActorNet": actor_lib.ActorNet}
 
 
-def from_numpy_tree(params, state, device="cuda"):
-    """Carry a (params, state) pair of nested dicts/lists of arrays -- e.g.
-    `mpnn_tpu`'s, converted with np.asarray -- into the port's tensors on
-    `device`. Arrays keep their dtype."""
-    def conv(tree):
-        if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return [conv(v) for v in tree]
-        return torch.as_tensor(np.asarray(tree)).to(device)
-    return conv(params), conv(state)
+def from_numpy_tree(*trees, device="cuda"):
+    """Carry nested dicts/lists of arrays -- e.g. `mpnn_tpu`'s (params,
+    state) or (params, state, vel), converted with np.asarray -- into the
+    port's tensors on `device`, one tree per argument. Arrays keep their
+    dtype, and the tensors are copies: the train step updates them in
+    place."""
+    return tuple(tree_map(lambda a: torch.tensor(np.asarray(a),
+                                                 device=device), t)
+                 for t in trees)
 
 
 def _lookup(table, name, what):
@@ -100,7 +99,7 @@ def decode_net(record, device="cuda"):
     root = _decode_layer_obj(record["root"])
     net = net_cls(root=root, **dict(record["hypers"]))
     params, state = _node_params_from_record(net.root, record["root"])
-    params, state = from_numpy_tree(params, state, device)
+    params, state = from_numpy_tree(params, state, device=device)
     return net, params, state, record.get("extra")
 
 

@@ -75,7 +75,7 @@ def _nets(**hypers):
     p = _randomize(to_np(jp), rng)
     s = _randomize(to_np(js), rng)
     jtree = jax.tree.map(jnp.asarray, (p, s))
-    ttree = from_numpy_tree(p, s, "cpu")
+    ttree = from_numpy_tree(p, s, device="cpu")
     return jnet, jtree, tnet, ttree
 
 

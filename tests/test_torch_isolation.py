@@ -4,7 +4,9 @@ with jax blocked; the entry point refuses to run on the CPU unless asked."""
 
 import ast
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 
@@ -59,7 +61,11 @@ def test_import_with_jax_blocked():
     r = _run("import mpnn_tpu_torch, mpnn_tpu_torch.ops.kernels, "
              "mpnn_tpu_torch.models.infer, mpnn_tpu_torch.utils.serdes, "
              "mpnn_tpu_torch.experiments, mpnn_tpu_torch.infer_bench, "
-             "mpnn_tpu_torch.data.synth; print('ok')")
+             "mpnn_tpu_torch.data.synth, mpnn_tpu_torch.data.augment, "
+             "mpnn_tpu_torch.models.routing, mpnn_tpu_torch.models.stats, "
+             "mpnn_tpu_torch.models.optim, mpnn_tpu_torch.models.steps, "
+             "mpnn_tpu_torch.utils.tree, mpnn_tpu_torch.train_bench; "
+             "print('ok')")
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
 
@@ -77,12 +83,39 @@ def test_infer_bench_cpu_with_jax_blocked():
                and r["device"] == "cpu" for r in recs)
 
 
-def test_entry_point_refuses_cpu_unless_asked():
+def test_train_bench_cpu_with_jax_blocked(tmp_path):
+    """It also reports the median of its windows, each window and the
+    first and last loss; --profile adds the step's split (no device time
+    on the CPU) and writes a Chrome trace."""
+    r = _run("import runpy, sys; sys.argv[0] = 'train_bench'; "
+             "runpy.run_module('mpnn_tpu_torch.train_bench', "
+             "run_name='__main__')",
+             "--device", "cpu", "--batch-size", "4", "--n-steps", "1",
+             "--n-windows", "2", "--profile", str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    rec, prof = [json.loads(line) for line in r.stdout.splitlines()
+                 if line.startswith("{")]
+    assert rec["metric"] == "train-step (fp32, batch 4)"
+    assert rec["device"] == "cpu" and rec["window_steps"] == 1
+    assert len(rec["window_values"]) == 2
+    assert rec["value"] == statistics.median(rec["window_values"]) > 0
+    assert all(map(math.isfinite, (rec["loss_first"], rec["loss_last"])))
+    assert rec["fused_mcm_launches_per_step"] == 0  # no kernel on the CPU
+    assert prof["steps"] == 1 and prof["device_ms_per_step"] == 0
+    assert prof["device_idle_share"] is None
+    assert (tmp_path / "train_fp32.json").exists()
+
+
+@pytest.mark.parametrize("entry,args", [
+    ("infer_bench", ["--batch-size", "8", "--n-batches", "1"]),
+    ("train_bench", ["--batch-size", "8", "--n-steps", "1"])])
+def test_entry_point_refuses_cpu_unless_asked(entry, args):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
-    from mpnn_tpu_torch.infer_bench import main
+    import importlib
+    main = importlib.import_module("mpnn_tpu_torch." + entry).main
     with pytest.raises(RuntimeError, match="--device cpu"):
-        main(["--batch-size", "8", "--n-batches", "1"])
+        main(args)
 
 
 def test_chip_smoke_refuses_without_gpu():

@@ -227,12 +227,39 @@ def test_batchnorm_bf16_matches_jax():
     np.testing.assert_allclose(_np(to), _np(jo), atol=0.05, rtol=0.02)
 
 
-def test_batchnorm_train_not_ported():
-    bn = T.BatchNorm()
-    bn.build((2, 2, 3))
-    with pytest.raises(NotImplementedError):
-        bn.apply(bn.init(None, (2, 2, 3)), bn.init_state((2, 2, 3)),
-                 torch.zeros(1, 2, 2, 3), None, TCtx(train=True))
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_batchnorm_train_matches_jax(dtype):
+    """Train mode: batch moments in fp32 (the biased variance E[x²] - m²),
+    the EMA of the running statistics, and the output, fp32 and under bf16
+    activations; the EMA carries no gradient."""
+    rng = np.random.RandomState(9)
+    x = (2.0 + 3.0 * rng.randn(6, 5, 4, 8)).astype(np.float32)
+    jl, tl = J.BatchNorm(d=0.8), T.BatchNorm(d=0.8)
+    jl.build((5, 4, 8))
+    tl.build((5, 4, 8))
+    p = _random_like(_np(jl.init(jax.random.PRNGKey(0), (5, 4, 8))), rng)
+    s = _random_like(_np(jl.init_state((5, 4, 8))), rng)
+    jx = jnp.asarray(x, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    tx = torch.as_tensor(x).to(torch.bfloat16 if dtype == "bf16"
+                               else torch.float32).requires_grad_()
+    jo, js, _ = jl.apply(_to_jax(p), _to_jax(s), jx, None,
+                         JCtx(train=True))
+    to, ts, _ = tl.apply(_to_torch(p), _to_torch(s), tx, None,
+                         TCtx(train=True))
+    assert to.dtype == tx.dtype
+    for k in ("m_avg", "v_avg"):
+        assert ts[k].dtype == torch.float32 and not ts[k].requires_grad
+        np.testing.assert_allclose(_np(ts[k]), _np(js[k]), rtol=1e-5,
+                                   atol=1e-6)
+    # The biased variance: v_avg = d * v0 + (1 - d) * (E[x²] - m²).
+    xf = np.asarray(jx, np.float64).reshape(-1, 8)
+    np.testing.assert_allclose(
+        _np(ts["v_avg"]), 0.8 * s["v_avg"] + 0.2 * xf.var(axis=0),
+        rtol=1e-5)
+    if dtype == "fp32":
+        _assert_close(to, jo)
+    else:
+        np.testing.assert_allclose(_np(to), _np(jo), atol=0.05, rtol=0.02)
 
 
 def test_compute_dtype_policy():
