@@ -61,9 +61,27 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               mcm_ref path's (not a gate).
               The kernel phase holds and times the eight stages at the
               training batch 128 too, fp32 and bf16.
+7. train_cli -- the training CLI's path (`train.train_experiment`, as
+              `python -m mpnn_tpu_torch.train` runs it) in a temporary
+              directory, fp32, batch 128, t_log 20, on the small synthetic
+              archives of the port's prep: synth-ac net 4 for 40
+              iterations, then resumed to 60; synth-sr net 7 (the 8-stage
+              SR chain) and synth-cr net 4 for 20 each. The kernel's count
+              starts from 0 before the first run; each run must launch it
+              exactly per_forward x (steps + evaluations x eval batches),
+              with per_forward summed over the net's MultiscaleConvMax
+              layers. Checks: every file of the output contract exists;
+              each final checkpoint, read back, equals the live params,
+              state and momentum bit for bit, with t = n_iter; the resumed
+              run starts at 40; the final synth-ac checkpoint's net_desc
+              through the kernel agrees with it through mcm_ref within
+              1e-4 * max(1, |stat|) on every scalar stat (the worst stat
+              is printed). Prints each run's seconds and img/s over
+              training alone and over training, evaluation and writes.
 
 Then one {"kernels": [...]} line (with the training main paths' launches
-in `train_launches`), and last the device record. Any failed
+in `train_launches` and the CLI path's in `train_cli_launches`), and last
+the device record. Any failed
 phase raises and the script exits non-zero; it also exits non-zero, with no
 result, where CUDA is absent or the port's package is not beside it."""
 
@@ -100,6 +118,11 @@ N_TRAIN_STEPS = 20  # steps per timed training window
 TRAIN_TOL = {"loss": 1e-5, "state": 1e-4, "tree": 1e-3, "leaf": 5e-2,
              "zero_grad": 1e-6}
 DISCRETE_TOL = 1e-4
+CLI_T_LOG = 20
+# (experiment, net index, n_iter, resume) of the train_cli phase.
+CLI_RUNS = [("synth-ac", 4, 40, False), ("synth-ac", 4, 60, True),
+            ("synth-sr", 7, 20, False), ("synth-cr", 4, 20, False)]
+DESC_TOL = 1e-4  # kernel vs mcm_ref net_desc, per scalar stat
 N_SERVE = 20  # batches per timed serving window
 N_WINDOWS = 5  # timed serving windows per capacity
 MARGIN_TIE = 1e-3  # router top-2 logit margin below which exits may differ
@@ -626,6 +649,163 @@ def train_phase(device, precision):
             "steps": n_steps, **extra}
 
 
+def mcm_launches_per_forward(net):
+    """fused_mcm launches of one forward of `net`: one per output scale of
+    every MultiscaleConvMax that takes the kernel."""
+    from mpnn_tpu_torch.ops.layers import MultiscaleConvMax
+    return sum(c._L for node in net.layers for c in node.comps
+               if isinstance(c, MultiscaleConvMax) and c._kernel_eligible())
+
+
+def _scalar_stats(desc, path=""):
+    """[(path, value)] of every scalar stat of a descriptor."""
+    out = [(path + "/" + k, v) for key in ("stats_tr", "stats_ts")
+           for k, v in sorted(desc.get(key, {}).items())
+           if isinstance(v, float)]
+    for i, s in enumerate(desc.get("sinks", [desc["root"]] if "root" in desc
+                                   else [])):
+        out += _scalar_stats(s, "%s/%d" % (path, i))
+    return out
+
+
+def train_cli_phase(device):
+    """The training CLI's path: four runs of train_experiment in a
+    temporary directory, their launches counted from 0."""
+    import contextlib
+    import io
+    import tempfile
+    from mpnn_tpu_torch import train as cli
+    from mpnn_tpu_torch.data.dataset import Dataset
+    from mpnn_tpu_torch.data.prep import make_synthetic_archives
+    from mpnn_tpu_torch.experiments import make_experiments, τ_ds
+    from mpnn_tpu_torch.ops import config, kernels
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    from mpnn_tpu_torch.utils.desc import net_desc
+    from mpnn_tpu_torch.utils.serdes import read_net
+    from mpnn_tpu_torch.utils.tree import tree_map
+
+    config.set_compute_dtype(None)
+    registry = make_experiments()
+    live = []
+    original = cli.train_one_net
+
+    def keep(*args, **kwargs):
+        out = original(*args, **kwargs)
+        live.append(out)
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        make_synthetic_archives(os.path.join(d, "data"), small=True)
+        prep_s = time.perf_counter() - t
+        out_root = os.path.join(d, "nets")
+        rows = []
+        # The main path: the kernel's count starts from 0 here and is read
+        # just after the last run.
+        fused_mcm.launches = 0
+        for expt, i, n_iter, resume in CLI_RUNS:
+            n0, timings, buf = fused_mcm.launches, [], io.StringIO()
+            t = time.perf_counter()
+            with mock.patch.object(cli, "train_one_net", keep), \
+                    contextlib.redirect_stdout(buf):
+                cli.train_experiment(
+                    expt, n_iter=n_iter, t_log=CLI_T_LOG,
+                    batch_size=TRAIN_BATCH, net_indices=[i], data_root=d,
+                    out_root=out_root, resume=resume, device=device,
+                    timings=timings)
+            wall = time.perf_counter() - t
+            n = fused_mcm.launches - n0
+            # The checkpoint now on disk against the live state (a later
+            # resume overwrites it); reading it launches nothing.
+            _, params, state, extra = read_net(os.path.join(
+                out_root, expt, "%.4i.npy" % i), device)
+            same = []
+            tree_map(lambda a, b: same.append(torch.equal(a, b)),
+                     (params, state, extra["vel"]), live[-1][:3])
+            rows.append((expt, i, n_iter, resume, timings[0], wall, n,
+                         buf.getvalue(), live[-1][3],
+                         bool(same) and all(same), extra["t"]))
+        launches = fused_mcm.launches
+
+        records, reached = [], {}
+        for (expt, i, n_iter, resume, tm, wall, n, text, desc, same,
+             ckpt_t) in rows:
+            e = registry[expt]
+            ds = Dataset(os.path.join(d, e.dataset), device_put=False)
+            net = e.nets[i](ds.x0_shape, ds.y_shape)
+            t_start = reached[expt, i] if resume else 0
+            reached[expt, i] = n_iter
+            evals = (sum(t % CLI_T_LOG == 0
+                         for t in range(t_start + 1, n_iter + 1))
+                     + (n_iter % CLI_T_LOG != 0))
+            eval_batches = sum(-(-len(x) // TRAIN_BATCH)
+                               for x in (ds.x0_tr, ds.x0_ts))
+            per_fwd = mcm_launches_per_forward(net)
+            expect = per_fwd * (n_iter - t_start + evals * eval_batches)
+            label = "%s net %d to %d%s" % (expt, i, n_iter,
+                                          " (resumed)" if resume else "")
+            check(n == expect, "train_cli %s: %d launches, expected %d = %d "
+                  "x (%d steps + %d evals x %d batches)" % (
+                      label, n, expect, per_fwd, n_iter - t_start, evals,
+                      eval_batches))
+            check(tm["t_start"] == t_start and tm["evals"] == evals,
+                  "train_cli %s: started at %d with %d evals" % (
+                      label, tm["t_start"], tm["evals"]))
+            if resume:
+                check("[resuming %s at t=%d]" % (os.path.join(
+                    out_root, expt, "%.4i.npy" % i), t_start) in text,
+                      "train_cli %s: no resume at t=%d" % (label, t_start))
+            root = os.path.join(out_root, expt)
+            names = ["MANIFEST.json", "%.4i-stats.npy" % i,
+                     "%.4i-log.txt" % i, "%.4i.npy" % i] + [
+                "%.4i-stats/%.8i.npy" % (i, t)
+                for t in range(CLI_T_LOG, n_iter + 1, CLI_T_LOG)]
+            missing = [x for x in names
+                       if not os.path.exists(os.path.join(root, x))]
+            check(not missing, "train_cli %s: missing %s" % (label, missing))
+            check(same and ckpt_t == n_iter,
+                  "train_cli %s: checkpoint differs from the live state "
+                  "(t=%s)" % (label, ckpt_t))
+            check(all(np.isfinite(v) for _, v in _scalar_stats(desc)),
+                  "train_cli %s: stats not finite" % label)
+            imgs = tm["steps"] * tm["batch_size"]
+            records.append({
+                "run": label, "steps": tm["steps"], "evals": tm["evals"],
+                "eval_batches": eval_batches, "launches": n,
+                "launches_per_forward": per_fwd, "wall_s": wall,
+                "train_s": tm["train_s"], "eval_s": tm["eval_s"],
+                "write_s": tm["write_s"], "total_s": tm["total_s"],
+                "eval_s_per_eval": tm["eval_s"] / tm["evals"],
+                "train_img_s": imgs / tm["train_s"],
+                "total_img_s": imgs / tm["total_s"],
+                "acc_ts": desc["stats_ts"]["acc"]})
+
+        # The final synth-ac checkpoint, evaluated through the kernel and
+        # through mcm_ref.
+        net, params, state, _ = read_net(
+            os.path.join(out_root, "synth-ac", "0004.npy"), device)
+        ds = Dataset(os.path.join(d, registry["synth-ac"].dataset),
+                     device=device)
+        descs = []
+        for stage in (None, _plain_stage):
+            with mock.patch.object(kernels, "fused_mcm",
+                                   stage or kernels.fused_mcm):
+                descs.append(net_desc(net, ds, params, state,
+                                      batch_size=TRAIN_BATCH,
+                                      tau=τ_ds(CLI_RUNS[1][2] - 1)))
+        diffs = [(abs(a - b) / max(1.0, abs(b)), p)
+                 for (p, a), (_, b) in zip(_scalar_stats(descs[0]),
+                                           _scalar_stats(descs[1]))]
+        worst, worst_path = max(diffs)
+        check(worst <= DESC_TOL, "train_cli: net_desc through the kernel "
+              "and through mcm_ref differ by %g at %s" % (worst, worst_path))
+    return {"batch": TRAIN_BATCH, "t_log": CLI_T_LOG, "precision": "fp32",
+            "prep_s": prep_s, "runs": records, "fused_mcm_launches": launches,
+            "desc_kernel_vs_plain": {"max_err": worst, "at": worst_path,
+                                     "n_stats": len(diffs),
+                                     "tolerance": DESC_TOL}}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -672,6 +852,10 @@ def main():
     for dt, rec in train.items():
         phase("train_" + dt, **rec)
 
+    # 7. the training CLI's path, its launches counted from 0.
+    cli = train_cli_phase(device)
+    phase("train_cli", **cli)
+
     bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
     bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
                                sum(r["flops"] for r in bf), "bf16")
@@ -683,6 +867,9 @@ def main():
         "launches": launches,
         "train_launches": {dt: r["fused_mcm_launches"]
                            for dt, r in train.items()},
+        "train_cli_launches": {"total": cli["fused_mcm_launches"],
+                               **{r["run"]: r["launches"]
+                                  for r in cli["runs"]}},
         "dtype": "bf16",
         "work": "the eight flagship stages, batch %d, one call each"
                 % BATCH,

@@ -7,7 +7,7 @@ both packages take the same arrays."""
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device="cuda"):
@@ -21,3 +21,10 @@ def resolve_device(device="cuda"):
             "False; pass device='cpu' (--device cpu) to run on the CPU"
             % str(device))
     return dev
+
+
+def synchronize(device):
+    """Wait for the device's queued work (a no-op on the CPU), so a host
+    clock read after it includes that work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

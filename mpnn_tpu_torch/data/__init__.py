@@ -1,3 +1,4 @@
 from . import augment, synth
+from .dataset import Dataset
 
-__all__ = ["augment", "synth"]
+__all__ = ["augment", "synth", "Dataset"]

@@ -1,9 +1,12 @@
-"""Architectures, training constants and net constructors of the flagship
-(counterpart of `mpnn_tpu/experiments.py:23-150`): the reference's
-constants, schedules and component builders, so a fresh flagship can be
-built and trained."""
+"""Architectures, training constants, net constructors and the experiment
+registry (counterpart of `mpnn_tpu/experiments.py`): the reference's
+constants, schedules and component builders, and every registry entry
+whose nets are chains. The three `*-tree` entries wait for the port of
+`dr_tree` (`TREE_EXPERIMENTS`); the adaptive registry is not ported."""
 
-from .models import ActorNet
+from types import SimpleNamespace as Ns
+
+from .models import ActorNet, CriticNet, SRNet
 from .ops.layers import (
     BatchNorm, Chain, CrossEntropyError, LinTrans, MultiscaleBatchNorm,
     MultiscaleConvMax, MultiscaleRect, Rect, Select, Softmax, ToPyramid)
@@ -30,6 +33,7 @@ arch = [
 # chains train with τ_ds, the critic chains with τ_cr.
 n_iter = 80000
 t_log = 2500
+batch_size = 128
 
 λ_lrn = lambda t: 0.1 / 2 ** (t / 10000)  # noqa: E731
 τ_cr = lambda t: 0.1 / 2 ** (t / 20000)  # noqa: E731
@@ -74,6 +78,17 @@ def reg(n_chan):
         Softmax(), CrossEntropyError()])
 
 
+def sr_chain(n_tf, width=1):
+    """Statically routed chain of the first n_tf conv stages."""
+    def make_net(x0_shape, y_shape):
+        root = reg(y_shape[0])
+        for i in reversed(range(n_tf)):
+            root = rcm(i, root, width=width)
+        root = pyr(root)
+        return SRNet(x0_shape=x0_shape, y_shape=y_shape, root=root)
+    return make_net
+
+
 def dr_chain(type_, width=1, **hypers):
     """Dynamically-routed 8-deep chain; every node also feeds an early-exit
     LogReg leaf."""
@@ -88,3 +103,73 @@ def dr_chain(type_, width=1, **hypers):
 
 def ac_chain(**hypers):
     return dr_chain(ActorNet, **hypers)
+
+
+def cr_chain(**hypers):
+    return dr_chain(CriticNet, **hypers)
+
+
+################################################################################
+# Experiment registry
+################################################################################
+
+# Per-net-type tau schedule (None: the net's own τ).
+SR_TAU, AC_TAU, CR_TAU = None, τ_ds, τ_cr
+
+# Registry entries of `mpnn_tpu` whose nets are trees (dr_tree): not ported.
+TREE_EXPERIMENTS = ("hybrid-ac-tree", "synth-ac-tree", "synth-cr-tree")
+
+
+def _sweep_sr(dataset, width=1):
+    return Ns(dataset=dataset,
+              nets=[sr_chain(n, width=width)
+                    for n in range(1, len(arch) + 1)],
+              tau=SR_TAU)
+
+
+def _sweep(dataset, ctor, tau, **hypers):
+    """A k_cpt sweep: 8 same-architecture nets differing only in the
+    cost-of-compute price."""
+    return Ns(dataset=dataset,
+              nets=[ctor(k_cpt=k, **hypers) for k in k_cpts],
+              tau=tau, sweep_k_cpts=list(k_cpts))
+
+
+def make_experiments():
+    """The chain entries of `mpnn_tpu`'s train-nets registry, by name."""
+    return {
+        "hybrid-sr": _sweep_sr("data/hybrid.npz"),
+        "hybrid-ac": _sweep("data/hybrid.npz", ac_chain, AC_TAU),
+        "hybrid-ac-nokdec": _sweep("data/hybrid.npz", ac_chain, AC_TAU,
+                                   k_dec=0),
+        "hybrid-ac-notalr": _sweep("data/hybrid.npz", ac_chain, AC_TAU,
+                                   talr=False),
+        "hybrid-ac-globopt": _sweep("data/hybrid.npz", ac_chain, AC_TAU,
+                                    globopt=True, talr=False),
+        "hybrid-cr": _sweep("data/hybrid.npz", cr_chain, CR_TAU),
+        "hybrid-cr-opt": _sweep("data/hybrid.npz", cr_chain, CR_TAU,
+                                optimistic=True),
+        "hybrid-cr-clserr": _sweep("data/hybrid.npz", cr_chain, CR_TAU,
+                                   use_cls_err=True),
+        "hybrid-cr-notalr": _sweep("data/hybrid.npz", cr_chain, CR_TAU,
+                                   talr=False),
+        "cifar2-sr": _sweep_sr("data/cifar-2.npz"),
+        "cifar2-ac": _sweep("data/cifar-2.npz", ac_chain, AC_TAU),
+        "cifar5-sr": _sweep_sr("data/cifar-5.npz"),
+        "cifar5-ac": _sweep("data/cifar-5.npz", ac_chain, AC_TAU),
+        "cifar10-sr": _sweep_sr("data/cifar-10.npz"),
+        "cifar10-ac": _sweep("data/cifar-10.npz", ac_chain, AC_TAU),
+        "cifar10-sr-fat": _sweep_sr("data/cifar-10.npz", width=2),
+        "cifar10-ac-fat": _sweep("data/cifar-10.npz", ac_chain, AC_TAU,
+                                 width=2),
+        "cifar10-sr-fatter": _sweep_sr("data/cifar-10.npz", width=4),
+        "cifar10-ac-fatter": _sweep("data/cifar-10.npz", ac_chain, AC_TAU,
+                                    width=4),
+        "mnist-sr": _sweep_sr("data/mnist.npz"),
+        "cifar10-cr": _sweep("data/cifar-10.npz", cr_chain, CR_TAU),
+        "synth-sr": _sweep_sr("data/synth.npz"),
+        "synth-ac": _sweep("data/synth.npz", ac_chain, AC_TAU),
+        "synth-ac-globopt": _sweep("data/synth.npz", ac_chain, AC_TAU,
+                                   globopt=True, talr=False),
+        "synth-cr": _sweep("data/synth.npz", cr_chain, CR_TAU),
+    }

@@ -21,11 +21,6 @@ import numpy as np
 import torch
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def main(argv=None):
     parser = ArgumentParser(description=__doc__)
     parser.add_argument("--checkpoint", default=None,
@@ -56,7 +51,7 @@ def main(argv=None):
                         help="torch device (default cuda; cpu for tests)")
     args = parser.parse_args(argv)
 
-    from . import resolve_device
+    from . import resolve_device, synchronize
     from .models.infer import calibrate_capacities, make_routed_infer_fn
     from .ops import config
 
@@ -108,13 +103,13 @@ def main(argv=None):
     for mode, cap in (("dense", 1.0), ("routed", routed_cap)):
         infer = make_routed_infer_fn(net, B, capacities=cap)
         out = infer(params, state, x0, args.k_cpt)  # warm-up
-        _sync(device)
+        synchronize(device)
         rates = []
         for _ in range(args.n_windows):
             t0 = time.perf_counter()
             for _ in range(args.n_batches):
                 out = infer(params, state, x0, args.k_cpt)
-            _sync(device)
+            synchronize(device)
             rates.append(args.n_batches * B / (time.perf_counter() - t0))
         ops = out["ops"].cpu().numpy()
         forced = out["forced"].cpu().numpy()

@@ -32,14 +32,15 @@ class Ctx(Ns):
 
 class Rec(Ns):
     """Per-node forward record: the node's output `x`, its loss terms, its
-    router's logits (fp32) and penalty, and the routing probabilities that
-    `routing.propagate` fills in."""
+    router's logits (fp32) and penalty, the routing probabilities that
+    `routing.propagate` fills in, and the critic's costs-to-go."""
 
     def __init__(self):
         super().__init__(
             x=None, c_err=0.0, c_mod=0.0, delta_cor=None,
             router_x=None, router_c_mod=0.0,
-            p_tr=None, p_ev=None, pi_tr=None, pi_ev=None)
+            p_tr=None, p_ev=None, pi_tr=None, pi_ev=None,
+            c_ev=None, c_opt=None, c_cre=0.0)
 
 
 def n_leaves(layer):

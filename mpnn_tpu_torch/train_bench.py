@@ -35,11 +35,6 @@ _MCM_BACKWARD = "_FusedMCMBackward"
 TOP_KERNELS = 15  # device operations listed by time in the profile line
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def build(seed=0, device="cuda", checkpoint=None):
     """(net, params, state, vel) of the flagship actor chain: fresh from
     `seed`, or read from `checkpoint` with zero velocities."""
@@ -134,7 +129,7 @@ def main(argv=None):
                         help="torch device (default cuda; cpu for tests)")
     args = parser.parse_args(argv)
 
-    from . import resolve_device
+    from . import resolve_device, synchronize
     from .experiments import λ_lrn, τ_ds
     from .models.steps import Schedules, make_train_step
     from .ops import config
@@ -161,13 +156,13 @@ def main(argv=None):
     launches0 = fused_mcm.launches
     rates = []
     for _ in range(args.n_windows):
-        _sync(device)
+        synchronize(device)
         t0 = time.perf_counter()
         for _ in range(args.n_steps):
             t += 1
             params, state, vel, c = step(params, state, vel, t, gen, x0_tr,
                                          y_tr, m_sym)
-        _sync(device)
+        synchronize(device)
         rates.append(args.n_steps * B / (time.perf_counter() - t0))
     n_timed = args.n_windows * args.n_steps
     print(json.dumps({
@@ -194,7 +189,7 @@ def main(argv=None):
                 t += 1
                 params, state, vel, c = step(params, state, vel, t, gen,
                                              x0_tr, y_tr, m_sym)
-            _sync(device)
+            synchronize(device)
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             args.profile, "train_%s.json" % args.precision))

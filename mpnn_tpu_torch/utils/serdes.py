@@ -1,5 +1,5 @@
-"""Checkpoint reading (counterpart of `mpnn_tpu/utils/serdes.py`), with
-numpy alone.
+"""Checkpoint writing and reading (counterpart of
+`mpnn_tpu/utils/serdes.py`).
 
 A checkpoint is a single `.npy` pickled nested dict; each layer record is
 
@@ -8,28 +8,116 @@ A checkpoint is a single `.npy` pickled nested dict; each layer record is
      'router': <record or None>}
 
 and the net record is {'type', 'root', 'hypers', 'params'} plus an
-optional 'extra' (optimizer state). BatchNorm running statistics (m_avg /
-v_avg) sit under 'params' in the file and are state at run time. Hyper keys
-may be raw unicode (e.g. 'ϵ' U+03F5); layers and nets NFKC-normalize them.
+optional 'extra' = {'vel': <momentum tree>, 't': <step>} for resume.
+BatchNorm running statistics (m_avg / v_avg) sit under 'params' in the
+file and are state at run time. Hyper keys may be raw unicode (e.g. 'ϵ'
+U+03F5); layers and nets NFKC-normalize them.
 
-Records are pickles: read only checkpoints this project wrote."""
+A written record holds float32 numpy arrays, plain Python hypers and
+`t` as a 0-d int64 array, as `mpnn_tpu` writes it, so either package
+(and numpy alone) reads it. Records are pickles: read only checkpoints
+this project wrote."""
+
+import os
 
 import numpy as np
 import torch
 
 from ..ops import layers as layer_lib
 from ..models import actor as actor_lib
+from ..models import critic as critic_lib
+from ..models import sr as sr_lib
 from .tree import tree_map
 
-__all__ = ["decode_net", "read_net", "from_numpy_tree"]
+__all__ = ["encode_net", "decode_net", "write_net", "read_net",
+           "atomic_save", "from_numpy_tree"]
 
+# Parameter names that are run-time state (BatchNorm running statistics).
 STATE_KEYS = frozenset({"m_avg", "v_avg"})
 
 _LAYER_TYPES = {name: getattr(layer_lib, name) for name in (
     "NoOp", "LinTrans", "Rect", "Softmax", "ToPyramid", "MultiscaleConvMax",
     "MultiscaleRect", "Select", "BatchNorm", "MultiscaleBatchNorm",
     "CrossEntropyError", "Chain")}
-_NET_TYPES = {"ActorNet": actor_lib.ActorNet}
+_NET_TYPES = {"ActorNet": actor_lib.ActorNet,
+              "CriticNet": critic_lib.CriticNet, "SRNet": sr_lib.SRNet}
+
+
+def atomic_save(path, obj):
+    """np.save through a temporary file and os.replace, so a process
+    killed mid-write never leaves a torn checkpoint or stats file."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.save(f, obj)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _to_np(t):
+    """A tensor as a numpy array that shares no memory with it."""
+    return np.array(t.detach().cpu().numpy())
+
+
+def _np_tree(tree):
+    """A tree of tensors as numpy arrays, dict keys sorted at every level
+    (the order JAX's pytrees, and so `mpnn_tpu`'s records, have)."""
+    if isinstance(tree, dict):
+        return {k: _np_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return _to_np(tree)
+
+
+def _encode_layer(layer, params, state):
+    if layer is None:
+        return None
+    merged = {k: _to_np(params[k]) for k in sorted(params) if k != "comps"}
+    merged.update({k: _to_np(state[k]) for k in sorted(state)
+                   if k != "comps"})
+    comp_params = params.get("comps", [{}] * len(layer.comps))
+    comp_state = state.get("comps", [{}] * len(layer.comps))
+    return dict(
+        type=type(layer).__name__,
+        name=layer.name,
+        hypers=dict(vars(layer.hypers)),
+        params=merged,
+        sinks=[],
+        comps=[_encode_layer(c, cp, cs)
+               for c, cp, cs in zip(layer.comps, comp_params, comp_state)],
+        router=None,
+    )
+
+
+def _encode_node(node, node_params, node_state):
+    rec = _encode_layer(node, node_params["layer"], node_state["layer"])
+    if node.router is not None:
+        rec["router"] = _encode_layer(node.router, node_params["router"],
+                                      node_state["router"])
+    rec["sinks"] = [
+        _encode_node(s, node_params["sinks"][i], node_state["sinks"][i])
+        for i, s in enumerate(node.sinks)]
+    return rec
+
+
+def encode_net(net, params, state, extra=None):
+    """The checkpoint record of (net, params, state); `extra`, when given,
+    is {"vel": <params-shaped tree>, "t": <int step>}."""
+    rec = dict(
+        type=type(net).__name__,
+        root=_encode_node(net.root, params, state),
+        hypers=dict(vars(net.hypers)),
+        params={},  # net-level params: always empty (reference schema)
+    )
+    if extra is not None:
+        rec["extra"] = {k: (_np_tree(extra[k]) if k == "vel"
+                            else np.asarray(extra[k]))
+                        for k in sorted(extra)}
+    return rec
+
+
+def write_net(path, net, params, state, extra=None):
+    atomic_save(path, encode_net(net, params, state, extra))
 
 
 def from_numpy_tree(*trees, device="cuda"):
@@ -92,7 +180,8 @@ def _node_params_from_record(node, rec):
 def decode_net(record, device="cuda"):
     """Rebuild (net, params, state, extra) from a decoded record: classes
     re-instantiated by name, shapes re-inferred by build(), arrays placed
-    on `device`. `extra` (training state) is returned as read, or None."""
+    on `device`. `extra` (training state), when present, comes back with
+    `vel` as tensors on `device` and `t` as an int; else None."""
     from .. import resolve_device
     device = resolve_device(device)
     net_cls = _lookup(_NET_TYPES, record["type"], "net")
@@ -100,7 +189,18 @@ def decode_net(record, device="cuda"):
     net = net_cls(root=root, **dict(record["hypers"]))
     params, state = _node_params_from_record(net.root, record["root"])
     params, state = from_numpy_tree(params, state, device=device)
-    return net, params, state, record.get("extra")
+    extra = record.get("extra")
+    if extra is not None:
+        extra = dict(extra)
+        if "vel" in extra:
+            # In the params' key order, which the optimizer's leaf lists
+            # rely on.
+            extra["vel"], = from_numpy_tree(
+                tree_map(lambda _, v: v, params, extra["vel"]),
+                device=device)
+        if "t" in extra:
+            extra["t"] = int(extra["t"])
+    return net, params, state, extra
 
 
 def read_net(path, device="cuda"):

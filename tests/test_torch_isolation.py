@@ -39,7 +39,7 @@ def _imports(path):
 
 def test_no_jax_or_mpnn_tpu_imports():
     files = _port_files()
-    assert len(files) >= 15
+    assert len(files) >= 21
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "mpnn_tpu", "flax",
                                   "optax")]
@@ -64,7 +64,10 @@ def test_import_with_jax_blocked():
              "mpnn_tpu_torch.data.synth, mpnn_tpu_torch.data.augment, "
              "mpnn_tpu_torch.models.routing, mpnn_tpu_torch.models.stats, "
              "mpnn_tpu_torch.models.optim, mpnn_tpu_torch.models.steps, "
-             "mpnn_tpu_torch.utils.tree, mpnn_tpu_torch.train_bench; "
+             "mpnn_tpu_torch.utils.tree, mpnn_tpu_torch.train_bench, "
+             "mpnn_tpu_torch.train, mpnn_tpu_torch.data.dataset, "
+             "mpnn_tpu_torch.data.prep, mpnn_tpu_torch.models.sr, "
+             "mpnn_tpu_torch.models.critic, mpnn_tpu_torch.utils.desc; "
              "print('ok')")
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
@@ -108,7 +111,8 @@ def test_train_bench_cpu_with_jax_blocked(tmp_path):
 
 @pytest.mark.parametrize("entry,args", [
     ("infer_bench", ["--batch-size", "8", "--n-batches", "1"]),
-    ("train_bench", ["--batch-size", "8", "--n-steps", "1"])])
+    ("train_bench", ["--batch-size", "8", "--n-steps", "1"]),
+    ("train", ["synth-ac", "--n-iter", "1", "--data-root", "/nonexistent"])])
 def test_entry_point_refuses_cpu_unless_asked(entry, args):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
