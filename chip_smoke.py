@@ -25,6 +25,16 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               checked and timed in bf16. Each bf16 stage's error against
               mcm_ref run in fp32 on the same bf16-valued inputs is printed
               (not a gate).
+   kernel_nets -- the kernel's net axis (mcm_scale_forward_nets): the
+              eight stages for the sweep's 8 nets at batch 128, fp32 and
+              bf16, stage 0's input shared, through torch.func.vmap of
+              fused_mcm (one launch per output scale for all nets),
+              against mcm_ref on each net's slice at the kernel phase's
+              tolerances; in fp32 every net's outputs must equal a
+              single-net launch on its tensors bit for bit. Times: the
+              vmapped call (`ms`, `device_ms`), mcm_ref net after net
+              (`plain_*`) and mcm_ref under the same vmap (`library_*`,
+              cuDNN's grouped convs), beside the bound of 8 nets' work.
 5. serve   -- reads the trained flagship checkpoint onto the GPU and runs
               routed inference (the port's main path) at capacity 1.0 and at
               calibrated capacities: first in fp32, kernel path against the
@@ -53,7 +63,7 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               forward (the stages' L sum to 20; the backward launches
               none); the same comparison for a float64 stage rounded to
               fp32 is printed as the yardstick of rounding alone.
-              train_fp32 and train_bf16 then each take 5 timed
+              train_fp32 and train_bf16 then each take 3 timed
               windows of 20 steps (img/s, median and every window; the
               loss finite at each window's end); the kernel's count is set
               to 0 before each and must read 20 per step after it. bf16
@@ -61,7 +71,20 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               mcm_ref path's (not a gate).
               The kernel phase holds and times the eight stages at the
               training batch 128 too, fp32 and bf16.
-7. train_cli -- the training CLI's path (`train.train_experiment`, as
+7. sweep   -- the vmapped k_cpt sweep (make_sweep_train_loop) of 8
+              flagship actor chains at batch 128 per net:
+              sweep_fp32_vs_plain takes one fp32 sweep step through the
+              net axis and through mcm_ref and holds it to
+              train_fp32_vs_plain's gates over the stacked trees (the
+              losses per member; the worst member's errors and a float64
+              stage's are printed), with
+              exactly 20 launches per sweep forward and none in the
+              backward; sweep_train_fp32 and sweep_train_bf16 take 5 timed
+              windows of 20 steps each (aggregate img/s of all nets,
+              median and every window, beside the single-net rate of the
+              train phase of the same run), the counts from 0 and 20
+              net-axis launches a step.
+8. train_cli -- the training CLI's path (`train.train_experiment`, as
               `python -m mpnn_tpu_torch.train` runs it) in a temporary
               directory, fp32, batch 128, t_log 20, on the small synthetic
               archives of the port's prep: synth-ac net 4 for 40
@@ -76,12 +99,19 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               run starts at 40; the final synth-ac checkpoint's net_desc
               through the kernel agrees with it through mcm_ref within
               1e-4 * max(1, |stat|) on every scalar stat (the worst stat
-              is printed). Prints each run's seconds and img/s over
-              training alone and over training, evaluation and writes.
+              is printed). Then synth-ac --vmap-sweep to 40 and resumed to
+              60 (all 8 nets at once, another output root), held the same
+              way for every net, with 20 launches per sweep forward, and
+              net 4's final descriptor from the sweep's vmapped
+              evaluation through the kernel against net_desc of its
+              checkpoint through mcm_ref. Prints each run's seconds and
+              img/s over training alone and over training, evaluation and
+              writes.
 
-Then one {"kernels": [...]} line (with the training main paths' launches
-in `train_launches` and the CLI path's in `train_cli_launches`), and last
-the device record. Any failed
+Then one {"kernels": [...]} line, the kernel and its net axis (with the
+training main paths' launches in `train_launches`, `sweep_launches` and
+the CLI path's in `train_cli_launches`, `train_cli_sweep_launches`), and
+last the device record. Any failed
 phase raises and the script exits non-zero; it also exits non-zero, with no
 result, where CUDA is absent or the port's package is not beside it."""
 
@@ -125,6 +155,13 @@ CLI_RUNS = [("synth-ac", 4, 40, False), ("synth-ac", 4, 60, True),
 DESC_TOL = 1e-4  # kernel vs mcm_ref net_desc, per scalar stat
 N_SERVE = 20  # batches per timed serving window
 N_WINDOWS = 5  # timed serving windows per capacity
+N_TRAIN_WINDOWS = 3  # timed windows of N_TRAIN_STEPS single-net steps
+N_NETS = 8  # nets of the flagship sweep (experiments.k_cpts)
+N_SWEEP_WINDOWS = 5  # timed windows of N_TRAIN_STEPS sweep steps
+# (n_iter, resume) of the train_cli phase's synth-ac --vmap-sweep runs, and
+# the member whose final descriptor is held against mcm_ref.
+SWEEP_CLI_RUNS = [(40, False), (60, True)]
+SWEEP_DESC_NET = 4
 MARGIN_TIE = 1e-3  # router top-2 logit margin below which exits may differ
 MARGIN_BF16 = 1e-2  # the margin reported for bf16 kernel vs plain exits
 
@@ -267,6 +304,86 @@ def kernel_phase(device):
                                "cudnn_conv_sequence_device_ms", "bound_ms",
                                "bound_by") if k in r}
             for r in rows if r["dtype"] == dt and r["batch"] == B])
+    return rows
+
+
+def kernel_nets_phase(device):
+    """fused_mcm's net axis: the flagship's eight stages for N_NETS nets at
+    the training batch, fp32 and bf16, stage 0's input shared, through
+    torch.func.vmap of fused_mcm (one launch per output scale for every
+    net), against mcm_ref on each net's slice; in fp32 each net's outputs
+    must equal a single-net launch on its tensors bit for bit."""
+    from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.kernel_bench import (bound, stage_cost, stage_times,
+                                             sweep_stage_fns,
+                                             sweep_stage_inputs)
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm, mcm_ref
+
+    stages = sweep_stage_inputs(arch, N_NETS, TRAIN_BATCH, 32, seed=1,
+                                device=device)
+    rows = []
+    for dt, torch_dt in DTYPES.items():
+        config.set_compute_dtype(torch_dt)
+        try:
+            for i, (xs, whs, wvs, bs, n_ops) in enumerate(stages):
+                xin = [x.to(torch_dt) for x in xs]
+                shared = xin[0].dim() == 4
+                n0, m0 = fused_mcm.launches, fused_mcm.net_launches
+                out = sweep_stage_fns(xin, whs, wvs, bs)[""]()
+                torch.cuda.synchronize()
+                check(fused_mcm.launches - n0 == fused_mcm.net_launches - m0
+                      == len(whs), "kernel_nets stage %d %s: %d launches, "
+                      "expected one net-axis launch per scale (%d)"
+                      % (i, dt, fused_mcm.launches - n0, len(whs)))
+                err = scale = single_err = 0.0
+                bit_equal = True
+                for n in range(N_NETS):
+                    xi = xin if shared else [x[n] for x in xin]
+                    args = (xi, [w[n] for w in whs], [w[n] for w in wvs],
+                            [b[n] for b in bs])
+                    ref = mcm_ref(*args)
+                    check(all(o.dtype == DTYPES[dt] and o[n].shape == r.shape
+                              for o, r in zip(out, ref)),
+                          "kernel_nets stage %d %s: output dtype/shape "
+                          "differs" % (i, dt))
+                    err = max([err] + [float((o[n].float() - r.float())
+                                             .abs().max())
+                                       for o, r in zip(out, ref)])
+                    scale = max([scale] + [float(r.float().abs().max())
+                                           for r in ref])
+                    single = fused_mcm(*args, 3)
+                    bit_equal &= all(torch.equal(o[n], s_)
+                                     for o, s_ in zip(out, single))
+                    single_err = max([single_err] + [
+                        float((s_.float() - r.float()).abs().max())
+                        for s_, r in zip(single, ref)])
+                check(err <= TOL[dt] * scale, "kernel_nets stage %d %s: max "
+                      "abs err %g > %g * max|ref| %g"
+                      % (i, dt, err, TOL[dt], scale))
+                check(bit_equal or dt != "fp32", "kernel_nets stage %d fp32: "
+                      "a net's outputs differ from its single-net launch"
+                      % i)
+                n_bytes, flops = stage_cost(xin, whs, wvs, bs, n_ops,
+                                            TRAIN_BATCH, dt, N_NETS)
+                row = {"stage": i, "dtype": dt, "nets": N_NETS,
+                       "batch": TRAIN_BATCH, "input_shared": shared,
+                       "c_out": [int(w.shape[-1]) for w in whs],
+                       "max_abs_err": err, "max_abs_ref": scale,
+                       "single_net_max_abs_err": single_err,
+                       "bit_equal_to_single_net": bit_equal,
+                       "bytes": n_bytes, "flops": flops}
+                row.update(stage_times(xin, whs, wvs, bs, sweep_stage_fns))
+                row["bound_ms"], row["bound_by"] = bound(n_bytes, flops, dt)
+                rows.append(row)
+        finally:
+            config.set_compute_dtype(None)
+    for dt in DTYPES:
+        phase("kernel_nets", dtype=dt, nets=N_NETS, batch=TRAIN_BATCH,
+              stages=[{k: v for k, v in r.items()
+                       if k not in ("dtype", "nets", "batch", "bytes",
+                                    "flops", "max_abs_ref")}
+                      for r in rows if r["dtype"] == dt])
     return rows
 
 
@@ -618,7 +735,7 @@ def train_phase(device, precision):
         params, state, vel, c = step(params, state, vel, 0, gen, *data)
         loss_first, t = float(c), 0
         rates, losses = [], []
-        for _ in range(N_WINDOWS):
+        for _ in range(N_TRAIN_WINDOWS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(N_TRAIN_STEPS):
@@ -634,7 +751,7 @@ def train_phase(device, precision):
         config.set_compute_dtype(None)
     check(all(np.isfinite(losses)) and np.isfinite(loss_first),
           "train %s: loss not finite: %s" % (precision, losses))
-    n_steps = 1 + N_WINDOWS * N_TRAIN_STEPS
+    n_steps = 1 + N_TRAIN_WINDOWS * N_TRAIN_STEPS
     per_fwd = sum(len(a) for a in arch)
     check(launches == per_fwd * n_steps, "train %s: %d launches in %d "
           "steps, expected %d a step" % (precision, launches, n_steps,
@@ -647,6 +764,167 @@ def train_phase(device, precision):
             "window_steps": N_TRAIN_STEPS, "loss_first": loss_first,
             "loss_window_ends": losses, "fused_mcm_launches": launches,
             "steps": n_steps, **extra}
+
+
+def sweep_once(net, trees, k_cpts, data, stage=None):
+    """One step of the flagship sweep, its batch sampled from the generator
+    seed 0 and augmented from seed 1, through the kernel's net axis or
+    through `stage` patched in for fused_mcm: the members' losses,
+    gradients and launches of the vmapped loss and gradient, then the
+    whole step's params, state and launches."""
+    from mpnn_tpu_torch.data.augment import augment_presampled, sampled_batch
+    from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import (Schedules, _sweep_members,
+                                             _sweep_step_body)
+    from mpnn_tpu_torch.ops import kernels
+    from mpnn_tpu_torch.utils.tree import tree_map
+    counter = kernels.fused_mcm
+    loss_and_grads, _ = _sweep_members(net, TRAIN_BATCH)
+    step = _sweep_step_body(net, TRAIN_BATCH, Schedules(lr=λ_lrn, tau=τ_ds))
+    params, state, vel = trees
+    params, vel = (tree_map(torch.clone, t) for t in (params, vel))
+    x0, y, m_sym = data
+    dev = x0.device
+    with mock.patch.object(kernels, "fused_mcm", stage or counter):
+        xb, yb = sampled_batch(torch.Generator(dev).manual_seed(0), x0, y,
+                               TRAIN_BATCH)
+        n0 = counter.launches
+        xa, ya = augment_presampled(torch.Generator(dev).manual_seed(1), xb,
+                                    yb, m_sym)
+        grads, (loss, _) = loss_and_grads(params, state, k_cpts, xa, ya,
+                                          τ_ds(0))
+        n1 = counter.launches
+        params, state, vel, _ = step(params, state, vel, 0,
+                                     torch.Generator(dev).manual_seed(1), xb,
+                                     yb, m_sym, k_cpts)
+        torch.cuda.synchronize()
+        n2 = counter.launches
+    return {"loss": loss.tolist(), "grads": grads, "params": params,
+            "state": state, "launches": (n1 - n0, n2 - n1)}
+
+
+def sweep_vs_plain_phase(device):
+    """One fp32 step of the 8-net flagship sweep through the kernel's net
+    axis against the same step through mcm_ref, at the gates of
+    train_fp32_vs_plain over the sweep's stacked trees (the losses per
+    member); the worst member's errors and the same comparison for a
+    float64 stage are printed beside them."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.utils.tree import unstack_tree
+    config.set_compute_dtype(None)
+    net, params, state, vel, k_cpts = train_bench.build_sweep(N_NETS, 0,
+                                                              device)
+    data = train_bench.train_data(net, device)
+    k = sweep_once(net, (params, state, vel), k_cpts, data)
+    r = sweep_once(net, (params, state, vel), k_cpts, data, _plain_stage)
+    f64 = sweep_once(net, (params, state, vel), k_cpts, data,
+                     _float64_stage)
+    per_fwd = sum(len(a) for a in arch)
+    check(k["launches"] == (per_fwd, per_fwd) and r["launches"] == (0, 0),
+          "sweep: kernel launches per sweep forward %s, expected %d (plain "
+          "path %s)" % (k["launches"], per_fwd, r["launches"]))
+    zero = zero_grad_paths(net)
+    names = {"gradient": "grads", "parameter": "params",
+             "BatchNorm statistic": "state"}
+
+    def errs(a, b, i=None):
+        pick = (lambda t: t) if i is None else (lambda t: unstack_tree(t, i))
+        return {name: tree_errs(pick(a[key]), pick(b[key]),
+                                frozenset() if key == "state" else zero)
+                for name, key in names.items()}
+
+    def worst_member(a, b):
+        worst = {}
+        for i in range(N_NETS):
+            for name, e in errs(a, b, i).items():
+                if e["tree"] >= worst.get(name, {}).get("tree", -1.0):
+                    worst[name] = dict(e, net=i)
+        return worst
+
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(k["loss"], r["loss"])]
+    stacked = errs(k, r)
+    check(max(loss_errs) <= TRAIN_TOL["loss"], "sweep: losses %s vs %s"
+          % (k["loss"], r["loss"]))
+    check(stacked["BatchNorm statistic"]["leaf"] <= TRAIN_TOL["state"],
+          "sweep: BatchNorm statistic error %g > %g"
+          % (stacked["BatchNorm statistic"]["leaf"], TRAIN_TOL["state"]))
+    for name in ("gradient", "parameter"):
+        for key in ("tree", "leaf", "zero_grad"):
+            check(stacked[name][key] <= TRAIN_TOL[key], "sweep: %s %s error "
+                  "%g > %g (worst leaf %s)" % (name, key, stacked[name][key],
+                                               TRAIN_TOL[key],
+                                               stacked[name]["worst_leaf"]))
+    # Not gates: the member the flips move most, and the same comparisons
+    # for a float64 stage, which rounds differently without being wrong.
+    return {"nets": N_NETS, "batch": TRAIN_BATCH, "k_cpts": k_cpts.tolist(),
+            "loss": k["loss"], "loss_plain": r["loss"],
+            "loss_rel_err": max(loss_errs), "errors": stacked,
+            "tolerances": TRAIN_TOL,
+            "worst_member": worst_member(k, r),
+            "float64_stage_vs_plain": {"errors": errs(f64, r),
+                                       "worst_member": worst_member(f64, r)},
+            "launches_per_sweep_forward": per_fwd}
+
+
+def sweep_train_phase(device, precision, single):
+    """The sweep's training main path in one precision: N_NETS flagship
+    chains trained at once by make_sweep_train_loop, a warm-up step, then
+    N_SWEEP_WINDOWS windows of one N_TRAIN_STEPS-step call each, the
+    kernel's counts from 0; `single` is the same call's single-net
+    record of train_phase."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.experiments import arch, λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import Schedules, make_sweep_train_loop
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    config.set_compute_dtype(DTYPES[precision])
+    try:
+        net, params, state, vel, k_cpts = train_bench.build_sweep(
+            N_NETS, 0, device)
+        data = train_bench.train_data(net, device)
+        loop = make_sweep_train_loop(net, TRAIN_BATCH,
+                                     Schedules(lr=λ_lrn, tau=τ_ds))
+        # The main path: the kernel's counts start from 0 here and are read
+        # just after the last step.
+        fused_mcm.launches = fused_mcm.net_launches = 0
+        params, state, vel, cs = loop(params, state, vel, 0, 0, *data, 1,
+                                      k_cpts)
+        loss_first, t = cs[-1].tolist(), 1
+        rates, losses = [], []
+        for _ in range(N_SWEEP_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, vel, cs = loop(params, state, vel, t, 0, *data,
+                                          N_TRAIN_STEPS, k_cpts)
+            t += N_TRAIN_STEPS
+            torch.cuda.synchronize()
+            rates.append(N_NETS * N_TRAIN_STEPS * TRAIN_BATCH
+                         / (time.perf_counter() - t0))
+            losses.append(cs[-1].tolist())
+        launches, net_launches = fused_mcm.launches, fused_mcm.net_launches
+    finally:
+        config.set_compute_dtype(None)
+    check(all(np.isfinite(v).all() for v in losses + [loss_first]),
+          "sweep %s: loss not finite: %s" % (precision, losses))
+    per_fwd = sum(len(a) for a in arch)
+    n_steps = 1 + N_SWEEP_WINDOWS * N_TRAIN_STEPS
+    check(launches == net_launches == per_fwd * n_steps, "sweep %s: %d "
+          "launches (%d of the net axis) in %d steps, expected %d a step"
+          % (precision, launches, net_launches, n_steps, per_fwd))
+    value = statistics.median(rates)
+    return {"nets": N_NETS, "batch_per_net": TRAIN_BATCH,
+            "metric": "train-sweep (%s, %d nets x batch %d)"
+            % (precision, N_NETS, TRAIN_BATCH), "value": value,
+            "unit": "images/sec (all nets)", "window_values": rates,
+            "window_steps": N_TRAIN_STEPS,
+            "single_net_value": single["value"],
+            "single_net_window_values": single["window_values"],
+            "vs_single_net": value / single["value"],
+            "loss_first": loss_first, "loss_window_ends": losses,
+            "fused_mcm_launches": launches,
+            "fused_mcm_net_launches": net_launches, "steps": n_steps}
 
 
 def mcm_launches_per_forward(net):
@@ -682,15 +960,20 @@ def train_cli_phase(device):
     from mpnn_tpu_torch.ops.kernels import fused_mcm
     from mpnn_tpu_torch.utils.desc import net_desc
     from mpnn_tpu_torch.utils.serdes import read_net
-    from mpnn_tpu_torch.utils.tree import tree_map
+    from mpnn_tpu_torch.utils.tree import tree_map, unstack_tree
 
     config.set_compute_dtype(None)
     registry = make_experiments()
     live = []
-    original = cli.train_one_net
+    original, original_sweep = cli.train_one_net, cli._train_sweep
 
     def keep(*args, **kwargs):
         out = original(*args, **kwargs)
+        live.append(out)
+        return out
+
+    def keep_sweep(*args, **kwargs):
+        out = original_sweep(*args, **kwargs)
         live.append(out)
         return out
 
@@ -725,6 +1008,31 @@ def train_cli_phase(device):
             rows.append((expt, i, n_iter, resume, timings[0], wall, n,
                          buf.getvalue(), live[-1][3],
                          bool(same) and all(same), extra["t"]))
+        sweep_root = os.path.join(d, "nets-sweep")
+        sweep_rows = []
+        for n_iter, resume in SWEEP_CLI_RUNS:
+            n0, timings, buf = fused_mcm.launches, [], io.StringIO()
+            t = time.perf_counter()
+            with mock.patch.object(cli, "_train_sweep", keep_sweep), \
+                    contextlib.redirect_stdout(buf):
+                cli.train_experiment(
+                    "synth-ac", n_iter=n_iter, t_log=CLI_T_LOG,
+                    batch_size=TRAIN_BATCH, data_root=d,
+                    out_root=sweep_root, resume=resume, device=device,
+                    timings=timings, vmap_sweep=True)
+            wall = time.perf_counter() - t
+            n = fused_mcm.launches - n0
+            same, ckpt_ts = [], []
+            for j in range(N_NETS):
+                _, params, state, extra = read_net(os.path.join(
+                    sweep_root, "synth-ac", "%.4i.npy" % j), device)
+                tree_map(lambda a, b: same.append(torch.equal(a, b)),
+                         (params, state, extra["vel"]),
+                         [unstack_tree(tr, j) for tr in live[-1][:3]])
+                ckpt_ts.append(extra["t"])
+            sweep_rows.append((n_iter, resume, timings[0], wall, n,
+                               buf.getvalue(), live[-1][3],
+                               bool(same) and all(same), ckpt_ts))
         launches = fused_mcm.launches
 
         records, reached = [], {}
@@ -780,6 +1088,80 @@ def train_cli_phase(device):
                 "total_img_s": imgs / tm["total_s"],
                 "acc_ts": desc["stats_ts"]["acc"]})
 
+        e = registry["synth-ac"]
+        ds = Dataset(os.path.join(d, e.dataset), device_put=False)
+        net = e.nets[0](ds.x0_shape, ds.y_shape)
+        per_fwd = mcm_launches_per_forward(net)
+        eval_batches = sum(-(-len(x) // TRAIN_BATCH)
+                           for x in (ds.x0_tr, ds.x0_ts))
+        t_start, sweep_records = 0, []
+        for (n_iter, resume, tm, wall, n, text, descs, same,
+             ckpt_ts) in sweep_rows:
+            evals = (sum(t % CLI_T_LOG == 0
+                         for t in range(t_start + 1, n_iter + 1))
+                     + (n_iter % CLI_T_LOG != 0))
+            expect = per_fwd * (n_iter - t_start + evals * eval_batches)
+            label = "synth-ac --vmap-sweep to %d%s" % (
+                n_iter, " (resumed)" if resume else "")
+            check(n == expect, "train_cli %s: %d launches, expected %d = %d "
+                  "x (%d steps + %d evals x %d batches)" % (
+                      label, n, expect, per_fwd, n_iter - t_start, evals,
+                      eval_batches))
+            check(tm["t_start"] == t_start and tm["evals"] == evals
+                  and tm["n_nets"] == N_NETS, "train_cli %s: started at %d "
+                  "with %d evals of %d nets" % (label, tm["t_start"],
+                                                tm["evals"], tm["n_nets"]))
+            if resume:
+                check("[resuming synth-ac sweep at t=%d]" % t_start in text,
+                      "train_cli %s: no resume at t=%d" % (label, t_start))
+            root = os.path.join(sweep_root, "synth-ac")
+            names = ["MANIFEST.json"] + [
+                name % j for j in range(N_NETS)
+                for name in ["%.4i-stats.npy", "%.4i-log.txt", "%.4i.npy"]
+                + ["%%.4i-stats/%.8i.npy" % t
+                   for t in range(CLI_T_LOG, n_iter + 1, CLI_T_LOG)]]
+            missing = [x for x in names
+                       if not os.path.exists(os.path.join(root, x))]
+            check(not missing, "train_cli %s: missing %s" % (label, missing))
+            check(same and ckpt_ts == [n_iter] * N_NETS,
+                  "train_cli %s: checkpoints differ from the live state "
+                  "(t=%s)" % (label, ckpt_ts))
+            check(all(np.isfinite(v) for desc in descs
+                      for _, v in _scalar_stats(desc)),
+                  "train_cli %s: stats not finite" % label)
+            imgs = N_NETS * tm["steps"] * tm["batch_size"]
+            sweep_records.append({
+                "run": label, "nets": N_NETS, "steps": tm["steps"],
+                "evals": tm["evals"], "eval_batches": eval_batches,
+                "launches": n, "launches_per_sweep_forward": per_fwd,
+                "wall_s": wall, "train_s": tm["train_s"],
+                "eval_s": tm["eval_s"], "write_s": tm["write_s"],
+                "total_s": tm["total_s"],
+                "train_img_s_all_nets": imgs / tm["train_s"],
+                "total_img_s_all_nets": imgs / tm["total_s"],
+                "acc_ts": [desc["stats_ts"]["acc"] for desc in descs]})
+            t_start = n_iter
+
+        # The sweep's final descriptor of one member, from its vmapped
+        # evaluation through the kernel's net axis, against net_desc of the
+        # member's checkpoint through mcm_ref.
+        net, params, state, _ = read_net(os.path.join(
+            sweep_root, "synth-ac", "%.4i.npy" % SWEEP_DESC_NET), device)
+        ds = Dataset(os.path.join(d, registry["synth-ac"].dataset),
+                     device=device)
+        with mock.patch.object(kernels, "fused_mcm", _plain_stage):
+            plain = net_desc(net, ds, params, state, batch_size=TRAIN_BATCH,
+                             tau=τ_ds(SWEEP_CLI_RUNS[-1][0] - 1))
+        sweep_diffs = [(abs(a - b) / max(1.0, abs(b)), p)
+                       for (p, a), (_, b) in zip(
+                           _scalar_stats(sweep_rows[-1][6][SWEEP_DESC_NET]),
+                           _scalar_stats(plain))]
+        sweep_worst, sweep_worst_path = max(sweep_diffs)
+        check(sweep_worst <= DESC_TOL, "train_cli: the sweep's descriptor of "
+              "net %d through the kernel and net_desc through mcm_ref differ "
+              "by %g at %s" % (SWEEP_DESC_NET, sweep_worst,
+                               sweep_worst_path))
+
         # The final synth-ac checkpoint, evaluated through the kernel and
         # through mcm_ref.
         net, params, state, _ = read_net(
@@ -800,10 +1182,15 @@ def train_cli_phase(device):
         check(worst <= DESC_TOL, "train_cli: net_desc through the kernel "
               "and through mcm_ref differ by %g at %s" % (worst, worst_path))
     return {"batch": TRAIN_BATCH, "t_log": CLI_T_LOG, "precision": "fp32",
-            "prep_s": prep_s, "runs": records, "fused_mcm_launches": launches,
+            "prep_s": prep_s, "runs": records, "sweep_runs": sweep_records,
+            "fused_mcm_launches": launches,
             "desc_kernel_vs_plain": {"max_err": worst, "at": worst_path,
                                      "n_stats": len(diffs),
-                                     "tolerance": DESC_TOL}}
+                                     "tolerance": DESC_TOL},
+            "sweep_desc_kernel_vs_plain": {
+                "net": SWEEP_DESC_NET, "max_err": sweep_worst,
+                "at": sweep_worst_path, "n_stats": len(sweep_diffs),
+                "tolerance": DESC_TOL}}
 
 
 def main():
@@ -834,8 +1221,10 @@ def main():
     # 3. the kernel's gradient
     phase("grad", **grad_phase(device))
 
-    # 4. kernel against its plain version, stage by stage
+    # 4. kernel against its plain version, stage by stage; then its net
+    # axis, the stages of a sweep's nets in one launch per scale.
     rows = kernel_phase(device)
+    net_rows = kernel_nets_phase(device)
 
     # 5. serve; the bf16 serving inside it is the main path, whose
     # launches are counted from 0.
@@ -852,13 +1241,26 @@ def main():
     for dt, rec in train.items():
         phase("train_" + dt, **rec)
 
-    # 7. the training CLI's path, its launches counted from 0.
+    # 7. the sweep: one step through the net axis against mcm_ref, then
+    # the sweep's training main path in each precision, its launches
+    # counted from 0, beside the same call's single-net rate.
+    phase("sweep_fp32_vs_plain", **sweep_vs_plain_phase(device))
+    sweep = {dt: sweep_train_phase(device, dt, train[dt])
+             for dt in ("fp32", "bf16")}
+    for dt, rec in sweep.items():
+        phase("sweep_train_" + dt, **rec)
+
+    # 8. the training CLI's path, serial and --vmap-sweep, its launches
+    # counted from 0.
     cli = train_cli_phase(device)
     phase("train_cli", **cli)
 
     bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
     bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
                                sum(r["flops"] for r in bf), "bf16")
+    nb = [r for r in net_rows if r["dtype"] == "bf16"]
+    nb_bound_ms, nb_bound_by = bound(sum(r["bytes"] for r in nb),
+                                     sum(r["flops"] for r in nb), "bf16")
     print(json.dumps({"kernels": [{
         "name": "fused_mcm",
         "route": "cuda",
@@ -895,6 +1297,35 @@ def main():
                   "barrier, one launch per output scale; fp32: FP32-pipe "
                   "4x4 register tile",
         "stages": rows,
+    }, {
+        "name": "fused_mcm, net axis",
+        "route": "cuda",
+        "source": "mpnn_tpu_torch/ops/csrc/fused_mcm.cu",
+        "replaces": "mpnn_tpu/ops/kernels.py:125",
+        "entry": "mcm_scale_forward_nets",
+        "launches": sweep["bf16"]["fused_mcm_net_launches"],
+        "sweep_launches": {dt: r["fused_mcm_net_launches"]
+                           for dt, r in sweep.items()},
+        "train_cli_sweep_launches": {r["run"]: r["launches"]
+                                     for r in cli["sweep_runs"]},
+        "dtype": "bf16",
+        "work": "the eight flagship stages for %d nets x batch %d, stage "
+                "0's input shared, one call each" % (N_NETS, TRAIN_BATCH),
+        "max_abs_err": max(r["max_abs_err"] for r in nb),
+        "ms": sum(r["ms"] for r in nb),
+        "plain_ms": sum(r["plain_ms"] for r in nb),
+        "timing": "as above; each call is torch.func.vmap of the stage "
+                  "over the nets, as the sweep calls it",
+        "device_ms": sum(r["device_ms"] for r in nb),
+        "plain_device_ms": sum(r["plain_device_ms"] for r in nb),
+        "bound_ms": nb_bound_ms,
+        "bound_by": nb_bound_by,
+        "library_ms": sum(r["library_ms"] for r in nb),
+        "library_device_ms": sum(r["library_device_ms"] for r in nb),
+        "library_call": "mcm_ref under torch.func.vmap over the nets "
+                        "(cuDNN's grouped convs)",
+        "plain": "mcm_ref on each net's slice, one net after another",
+        "stages": net_rows,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,10 @@ seeded numpy generator), `stage_times` gives, for the kernel (`ms`),
 
 and `stage_cost` and `bound` give the stage's bound: the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
-its operations over the type's peak rate. The timers need a CUDA GPU."""
+its operations over the type's peak rate. `sweep_stage_inputs` and
+`sweep_stage_fns` give the same for a sweep's stage: every net at once
+through fused_mcm's net axis, against `mcm_ref` under the same
+`torch.func.vmap` (cuDNN's grouped convs). The timers need a CUDA GPU."""
 
 import statistics
 import subprocess
@@ -108,15 +111,32 @@ def stage_inputs(arch, B, x_hw, seed, device, c_in=3):
     return stages
 
 
-def stage_cost(xs, whs, wvs, bs, n_ops, B, dt):
+def sweep_stage_inputs(arch, n_nets, B, x_hw, seed, device):
+    """Per stage of `arch`, that stage for n_nets nets: (xs, whs, wvs, bs,
+    n_ops) with net i's tensors those of `stage_inputs` from seed + i,
+    stacked on a leading axis; stage 0's input pyramid (made from the
+    shared batch) is net 0's, shared by every net."""
+    per_net = [stage_inputs(arch, B, x_hw, seed + i, device)
+               for i in range(n_nets)]
+    out = []
+    for si, stages in enumerate(zip(*per_net)):
+        def stack(k):
+            return [torch.stack(ts) for ts in zip(*(st[k] for st in stages))]
+        xs = stages[0][0] if si == 0 else stack(0)
+        out.append((xs, stack(1), stack(2), stack(3), stages[0][4]))
+    return out
+
+
+def stage_cost(xs, whs, wvs, bs, n_ops, B, dt, n_nets=1):
     """(bytes, flops) the stage must move and compute: each input read once,
-    each output written once."""
+    each output written once. With n_nets, whs, wvs and bs (and xs unless
+    they are shared) carry the nets on a leading axis."""
     esize = 4 if dt == "fp32" else 2
     n_in = sum(x.numel() for x in xs) + sum(w.numel() for w in whs + wvs)
-    n_out = sum(x.shape[0] * x.shape[1] * x.shape[2] * w.shape[-1]
-                for x, w in zip(xs, whs))
+    n_out = n_nets * sum(x.shape[-4] * x.shape[-3] * x.shape[-2]
+                         * w.shape[-1] for x, w in zip(xs, whs))
     n_bytes = esize * (n_in + n_out) + 4 * sum(b.numel() for b in bs)
-    return n_bytes, 2.0 * n_ops * B
+    return n_bytes, 2.0 * n_ops * B * n_nets
 
 
 def bound(n_bytes, flops, dt):
@@ -153,11 +173,38 @@ def stage_fns(xin, whs, wvs, bs):
                                                           pooled)}
 
 
-def stage_times(xin, whs, wvs, bs):
-    """Call (`*ms`) and device (`*device_ms`) times of the three versions
-    of one stage."""
+def sweep_stage_fns(xin, whs, wvs, bs):
+    """{prefix: fn} of a sweep's stage: every net through fused_mcm's net
+    axis as `torch.func.vmap` calls it (""), the plain version `mcm_ref`
+    on each net's slice ("plain_"), and `mcm_ref` under the same vmap
+    ("library_": cuDNN's grouped convs); weights cast to the compute
+    dtype once. The inputs are shared when they carry no net axis."""
+    from .ops.kernels import fused_mcm, mcm_ref
+    dt = xin[0].dtype
+    wc = [w.to(dt) for w in whs]
+    vc = [w.to(dt) for w in wvs]
+    x_dim = 0 if xin[0].dim() == 5 else None
+
+    def vmapped(stage):
+        return torch.func.vmap(lambda w, v, b, x: stage(x, w, v, b),
+                               in_dims=(0, 0, 0, x_dim))
+
+    def plain():
+        return [mcm_ref(xin if x_dim is None else [x[i] for x in xin],
+                        [w[i] for w in wc], [w[i] for w in vc],
+                        [b[i] for b in bs]) for i in range(bs[0].shape[0])]
+
+    kernel = vmapped(lambda x, w, v, b: fused_mcm(x, w, v, b, 3))
+    library = vmapped(mcm_ref)
+    return {"": lambda: kernel(wc, vc, bs, xin), "plain_": plain,
+            "library_": lambda: library(wc, vc, bs, xin)}
+
+
+def stage_times(xin, whs, wvs, bs, fns=stage_fns):
+    """Call (`*ms`) and device (`*device_ms`) times of the versions of one
+    stage that `fns` gives."""
     times = {}
-    for name, fn in stage_fns(xin, whs, wvs, bs).items():
+    for name, fn in fns(xin, whs, wvs, bs).items():
         times[name + "ms"] = time_ms(fn)
         times[name + "device_ms"] = device_ms(fn)
     return times

@@ -9,6 +9,7 @@ times that, before a TF-style momentum step:
     vel <- μ * vel + grad;  param <- param - lr * vel"""
 
 import torch
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from ..utils.tree import tree_leaves, tree_map
 
@@ -21,9 +22,13 @@ def talr_scale_grads(net, grads, p_tr_by_uid, alpha_rtr=1.0, talr=True):
 
     def scaled(tree, s):
         # One multi-tensor launch for all of a node's layer (or router)
-        # leaves instead of one per leaf.
+        # leaves instead of one per leaf; under torch.func.vmap (the
+        # sweep), which has no batching rule for it, one product a leaf.
         leaves = tree_leaves(tree)
-        it = iter(torch._foreach_mul(leaves, s) if leaves else [])
+        if leaves and is_functorch_wrapped_tensor(leaves[0]):
+            it = iter([leaf * s for leaf in leaves])
+        else:
+            it = iter(torch._foreach_mul(leaves, s) if leaves else [])
         return tree_map(lambda _: next(it), tree)
 
     def visit(node, g):

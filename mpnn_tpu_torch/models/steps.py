@@ -14,7 +14,14 @@ each. Its draws are functions of integers, as JAX's `fold_in` keys are:
 the tile's gather of (seed, t_first), each step's augmentation of
 (seed, t); so a run resumed at a span boundary draws what the
 uninterrupted run draws. `make_eval_split_fn` loops `_eval_batch_fn`
-over a padded split. The vmapped sweep of `mpnn_tpu` is not ported."""
+over a padded split.
+
+`make_sweep_train_loop` trains a k_cpt sweep of same-architecture nets
+in one step: `torch.func.vmap` of the loss and gradient over stacked
+params, state and k_cpt, with the batch shared (sampled and augmented
+once, outside the vmap), then of TALR and analytic L2 per member, and
+one TF momentum update over the stacked leaves. `make_sweep_eval_split_fn`
+evaluates every member per batch. Sweep meshes are not ported."""
 
 import numpy as np
 import torch
@@ -77,22 +84,38 @@ def _step_pieces(net, batch_size, schedules, r_shift, presampled):
             k_cpt = k_cpt_static
         return xb, yb, Ctx(train=True, tau=tau, eps=eps_rte, k_cpt=k_cpt)
 
+    loss_fn = _loss_fn(net, batch_size)
+
     def loss_and_grads(params, state, xb, yb, ctx):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         it = iter(leaves)
         live = tree_map(lambda _: next(it), params)
         with torch.enable_grad():
-            recs, new_state = net.forward(live, state, xb, yb, ctx)
-            c_tot = net.loss(recs, batch_size, ctx)
+            c_tot, (new_state, p_tr_by_uid) = loss_fn(live, state, xb, yb,
+                                                      ctx)
             grads = torch.autograd.grad(c_tot, leaves,
                                         materialize_grads=True)
-        p_tr_by_uid = {str(l._uid): recs[l].p_tr.detach()
-                       for l in net.layers if recs[l].p_tr is not None}
+        p_tr_by_uid = {k: v.detach() for k, v in p_tr_by_uid.items()}
         it = iter(grads)
         return (c_tot.detach(), new_state, p_tr_by_uid,
                 tree_map(lambda _: next(it), params))
 
     return batch_ctx, loss_and_grads
+
+
+def _loss_fn(net, batch_size):
+    """loss_fn(params, state, xb, yb, ctx) -> (c_tot, (new_state,
+    p_tr_by_uid)): the loss of one forward, with the new BatchNorm state
+    and each node's p_tr, in the form `torch.func.grad_and_value` takes."""
+
+    def loss_fn(params, state, xb, yb, ctx):
+        recs, new_state = net.forward(params, state, xb, yb, ctx)
+        c_tot = net.loss(recs, batch_size, ctx)
+        return c_tot, (new_state, {str(l._uid): recs[l].p_tr
+                                   for l in net.layers
+                                   if recs[l].p_tr is not None})
+
+    return loss_fn
 
 
 def make_train_step(net, batch_size, schedules, r_shift=4):
@@ -114,10 +137,9 @@ def _train_step_body(net, batch_size, schedules, r_shift=4,
     """The single train step; with presampled, x0_tr / y_tr are the step's
     already gathered batch and only flip and shift run."""
     mu = float(_hyper(net, "μ_lrn", 0.9))
-    alpha_rtr = float(_hyper(net, "α_rtr", 1.0))
-    talr = bool(_hyper(net, "talr", True))
     batch_ctx, loss_and_grads = _step_pieces(net, batch_size, schedules,
                                              r_shift, presampled)
+    scale_grads = _grad_transform(net)
 
     def step(params, state, vel, t, gen, x0_tr, y_tr, m_sym, k_cpt=None):
         xb, yb, ctx = batch_ctx(t, gen, x0_tr, y_tr, m_sym, k_cpt)
@@ -125,17 +147,32 @@ def _train_step_body(net, batch_size, schedules, r_shift=4,
             params, state, xb, yb, ctx)
         # A profiler range: train_bench --profile reads the update's time.
         with torch.profiler.record_function("optimizer"):
-            if ops_config.analytic_l2:
-                grads, c_l2 = tree_l2_decay(net, params, grads, p_tr_by_uid)
-                c_tot = c_tot + c_l2
-            if net.uses_expectation_optimizer:
-                grads = talr_scale_grads(net, grads, p_tr_by_uid,
-                                         alpha_rtr=alpha_rtr, talr=talr)
+            grads, c_tot = scale_grads(params, grads, p_tr_by_uid, c_tot)
             params, vel = momentum_update(params, vel, grads,
                                           schedules.lr(t), mu)
         return params, new_state, vel, c_tot
 
     return step
+
+
+def _grad_transform(net):
+    """scale(params, grads, p_tr_by_uid, c_tot) -> (grads, c_tot): the
+    analytic L2 gradient and loss (`ops.config.analytic_l2`), then TALR
+    for nets with the expectation optimizer; of one net, so the sweep
+    vmaps it over its members."""
+    alpha_rtr = float(_hyper(net, "α_rtr", 1.0))
+    talr = bool(_hyper(net, "talr", True))
+
+    def scale(params, grads, p_tr_by_uid, c_tot):
+        if ops_config.analytic_l2:
+            grads, c_l2 = tree_l2_decay(net, params, grads, p_tr_by_uid)
+            c_tot = c_tot + c_l2
+        if net.uses_expectation_optimizer:
+            grads = talr_scale_grads(net, grads, p_tr_by_uid,
+                                     alpha_rtr=alpha_rtr, talr=talr)
+        return grads, c_tot
+
+    return scale
 
 
 def _eval_batch_fn(net, batch_size):
@@ -212,6 +249,28 @@ def _spans(t0, n_steps, sample_tile):
     return spans + ([(t0 + n_full * tile, rem)] if rem else [])
 
 
+def _run_spans(step, batch_size, sample_tile, carry, t0, seed, x0_tr,
+               y_tr, m_sym, n_steps, k_cpt):
+    """The chunked loop shared by `make_train_loop` and
+    `make_sweep_train_loop` (the counterpart of `mpnn_tpu`'s
+    `_tiled_scan_loop`): per span one gather from (seed, t_first), then
+    `step` on each of its batches with the generator re-seeded from
+    (seed, t). Returns (params, state, vel, losses[n_steps, ...])."""
+    params, state, vel = carry
+    gen = torch.Generator(device=x0_tr.device)
+    sample_span = _chunk_sampler(batch_size, x0_tr, y_tr)
+    cs = []
+    for t_first, n in _spans(t0, n_steps, sample_tile):
+        xc, yc = sample_span(gen, seed, t_first, n)
+        for i in range(n):
+            t = t_first + i
+            gen.manual_seed(_fold(seed, t))
+            params, state, vel, c = step(params, state, vel, t, gen, xc[i],
+                                         yc[i], m_sym, k_cpt)
+            cs.append(c)
+    return params, state, vel, torch.stack(cs)
+
+
 def make_train_loop(net, batch_size, schedules, r_shift=4, sample_tile=256):
     """Chunked training: n_steps train steps in one call.
 
@@ -228,20 +287,92 @@ def make_train_loop(net, batch_size, schedules, r_shift=4, sample_tile=256):
 
     def loop(params, state, vel, t0, seed, x0_tr, y_tr, m_sym, n_steps,
              k_cpt=None):
-        gen = torch.Generator(device=x0_tr.device)
-        sample_span = _chunk_sampler(batch_size, x0_tr, y_tr)
-        cs = []
-        for t_first, n in _spans(t0, n_steps, sample_tile):
-            xc, yc = sample_span(gen, seed, t_first, n)
-            for i in range(n):
-                t = t_first + i
-                gen.manual_seed(_fold(seed, t))
-                params, state, vel, c = step(params, state, vel, t, gen,
-                                             xc[i], yc[i], m_sym, k_cpt)
-                cs.append(c)
-        return params, state, vel, torch.stack(cs)
+        return _run_spans(step, batch_size, sample_tile, (params, state, vel),
+                          t0, seed, x0_tr, y_tr, m_sym, n_steps, k_cpt)
 
     return loop
+
+
+def make_sweep_train_loop(net, batch_size, schedules, r_shift=4,
+                          sample_tile=256):
+    """Train a whole k_cpt sweep of same-architecture nets at once.
+
+    loop(params_s, state_s, vel_s, t0, seed, x0_tr, y_tr, m_sym, n_steps,
+         k_cpts) -> (params_s, state_s, vel_s, losses[n_steps, n_nets])
+
+    The trees carry the nets on a leading axis (`utils.tree.stack_trees`)
+    and k_cpts is the (n_nets,) float32 tensor of their prices. Each step
+    is `torch.func.vmap` of the loss and gradient (`grad_and_value`) over
+    params, state and k_cpt, then of TALR and analytic L2 per member
+    (`_sweep_members`), with the batch shared:
+    it is sampled and augmented once, outside the vmap, on the chunked
+    loop's spans and draws (`_run_spans`), so every net sees the same
+    batch stream (the common random numbers of `mpnn_tpu`'s sweep) and
+    member i takes the serial step of net i on it. Every stage of the
+    forward is one launch of `fused_mcm`'s net axis for all the nets. One
+    TF momentum update covers the stacked leaves (lr and μ are shared).
+    params_s and vel_s are updated in place."""
+    step = _sweep_step_body(net, batch_size, schedules, r_shift)
+
+    def loop(params_s, state_s, vel_s, t0, seed, x0_tr, y_tr, m_sym, n_steps,
+             k_cpts):
+        return _run_spans(step, batch_size, sample_tile,
+                          (params_s, state_s, vel_s), t0, seed, x0_tr, y_tr,
+                          m_sym, n_steps, k_cpts)
+
+    return loop
+
+
+def _sweep_step_body(net, batch_size, schedules, r_shift=4):
+    """The sweep's step on a presampled batch:
+
+    step(params_s, state_s, vel_s, t, gen, xb, yb, m_sym, k_cpts)
+        -> (params_s, state_s, vel_s, losses[n_nets])
+
+    flips and shifts the shared batch from `gen`, then takes every
+    member's step (see `make_sweep_train_loop`)."""
+    if schedules.k_cpt_sample is not None:
+        raise ValueError("a k_cpt sweep trains each net at its own static "
+                         "k_cpt; per-example k_cpt sampling is not swept")
+    mu = float(_hyper(net, "μ_lrn", 0.9))
+    tau_default = float(_hyper(net, "τ", 1.0))
+    loss_and_grads, scale_grads = _sweep_members(net, batch_size)
+
+    def step(params_s, state_s, vel_s, t, gen, xb, yb, m_sym, k_cpts):
+        xb, yb = augment_presampled(gen, xb, yb, m_sym, r_shift)
+        tau = schedules.tau(t) if schedules.tau is not None else tau_default
+        grads, (c, (state_s, p_tr_by_uid)) = loss_and_grads(
+            params_s, state_s, k_cpts, xb, yb, tau)
+        # A profiler range: train_bench --profile reads the update's time.
+        with torch.profiler.record_function("optimizer"):
+            grads, c = scale_grads(params_s, grads, p_tr_by_uid, c)
+            params_s, vel_s = momentum_update(params_s, vel_s, grads,
+                                              schedules.lr(t), mu)
+        return params_s, state_s, vel_s, c
+
+    return step
+
+
+def _sweep_members(net, batch_size):
+    """(loss_and_grads, scale) of a sweep's members, each a
+    `torch.func.vmap` over the nets:
+
+    loss_and_grads(params_s, state_s, k_cpts, xb, yb, tau) -> (grads_s,
+    (losses, (state_s, p_tr_by_uid))): each member's loss and gradient
+    (`grad_and_value` of `_loss_fn`) on the shared batch at its price;
+
+    scale(params_s, grads_s, p_tr_by_uid, losses) -> (grads_s, losses):
+    each member's analytic L2 and TALR (`_grad_transform`)."""
+    eps_rte = float(_hyper(net, "ϵ", 1e-6))
+    grad_and_loss = torch.func.grad_and_value(_loss_fn(net, batch_size),
+                                              has_aux=True)
+
+    def member(params, state, k_cpt, xb, yb, tau):
+        ctx = Ctx(train=True, tau=tau, eps=eps_rte, k_cpt=k_cpt)
+        return grad_and_loss(params, state, xb, yb, ctx)
+
+    return (torch.func.vmap(member, in_dims=(0, 0, 0, None, None, None)),
+            torch.func.vmap(_grad_transform(net)))
 
 
 def make_eval_split_fn(net, batch_size):
@@ -255,7 +386,22 @@ def make_eval_split_fn(net, batch_size):
     The sums stay on the device. eval_key seeds dropout noise in
     `mpnn_tpu`; the port has no Dropout, so it is accepted and ignored,
     as JAX ignores it for dropout-free nets."""
-    eval_batch = _eval_batch_fn(net, batch_size)
+    return _split_sums(_eval_batch_fn(net, batch_size))
+
+
+def make_sweep_eval_split_fn(net, batch_size):
+    """The full-split evaluator of a k_cpt sweep: every member evaluated
+    per batch (`torch.func.vmap` of the batch's stats over params, state
+    and k_cpt, the batch shared). Takes stacked trees and a (n_nets,)
+    k_cpt tensor; the sums carry a leading (n_nets,) axis."""
+    return _split_sums(torch.func.vmap(
+        _eval_batch_fn(net, batch_size),
+        in_dims=(0, 0, None, None, None, None, 0)))
+
+
+def _split_sums(eval_batch):
+    """eval_split of `make_eval_split_fn`: `eval_batch` summed over the
+    batches of a padded split."""
 
     def eval_split(params, state, x0s, ys, masks, tau, k_cpt,
                    eval_key=None):

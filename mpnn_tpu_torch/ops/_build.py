@@ -77,10 +77,14 @@ def load():
         lib = ctypes.CDLL(str(build()))
         # Declare every signature: ctypes would otherwise pass each pointer
         # as a 32-bit int.
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mcm_scale_forward.argtypes = [p, p, p, p, p, p,
                                           i, i, i, i, i, i, i, p]
         lib.mcm_scale_forward.restype = i
+        lib.mcm_scale_forward_nets.argtypes = [p, p, p, p, p, p, i,
+                                               ll, ll, ll, ll, ll, ll,
+                                               i, i, i, i, i, i, i, p]
+        lib.mcm_scale_forward_nets.restype = i
         lib.mcm_error_string.argtypes = [i]
         lib.mcm_error_string.restype = ctypes.c_char_p
         _lib = lib

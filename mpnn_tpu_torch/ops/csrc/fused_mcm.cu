@@ -1,5 +1,5 @@
 // The MultiscaleConvMax stage for Hopper (sm_90a), one launch per output
-// scale.
+// scale, for one net or for a sweep of N nets at once.
 //
 // Replaces the TPU kernel mpnn_tpu/ops/kernels.py:fused_mcm_forward (body
 // _mcm_kernel). It computes one scale j of the stage:
@@ -52,6 +52,16 @@
 // halo tile of the input read by all 9 taps), wgmma with TMA-fed tiles,
 // and the scale chain kept on chip with one launch per stage.
 //
+// The net axis (mcm_scale_forward_nets): a vmapped k_cpt sweep trains N
+// nets of one architecture on one shared batch. Each launch then computes
+// scale j for all N nets: the grid gains a dimension over nets (y in fp32,
+// z in bf16), and each block offsets its six pointers by net x that
+// tensor's per-net element stride; a stride of 0 shares the tensor by
+// every net (stage 0's pyramid, made from the shared batch). Everything
+// else is the single-net kernel, so a net's outputs are bit for bit those
+// of a single-net launch on its tensors. The wrapper keeps every net's
+// slice 16-byte aligned.
+//
 // fp32 (the checks' type): the FP32 pipes, from registers and L1, with no
 // shared memory. Each thread keeps a 4x4 tile in fp32 registers: QX=4
 // neighbouring output pixels by CO=4 output channels. A warp's threads take
@@ -67,6 +77,11 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// Per-net element strides of the six tensors (0: shared by every net).
+struct NetStrides {
+  long long x, wh, prev, wv, bias, out;
+};
 
 constexpr int KS = 3;  // taps per spatial dim
 constexpr int CO = 4;  // output channels per fp32 thread, and the unit of Cout
@@ -161,7 +176,17 @@ __global__ void __launch_bounds__(THREADS, 2)
 mcm_scale_kernel(const float* __restrict__ x, const float* __restrict__ wh,
                  const float* __restrict__ prev, const float* __restrict__ wv,
                  const float* __restrict__ bias, float* __restrict__ out,
-                 int B, int H, int W, int Cin, int Cprev, int Cout) {
+                 int B, int H, int W, int Cin, int Cprev, int Cout,
+                 NetStrides ns) {
+  const long long net = blockIdx.y;
+  x += net * ns.x;
+  wh += net * ns.wh;
+  if (prev != nullptr) {
+    prev += net * ns.prev;
+    wv += net * ns.wv;
+  }
+  bias += net * ns.bias;
+  out += net * ns.out;
   const int nq = (W + QX - 1) / QX;
   const int ng = Cout / CO;
   const long long total = (long long)B * H * nq * ng;
@@ -197,19 +222,20 @@ mcm_scale_kernel(const float* __restrict__ x, const float* __restrict__ wh,
 
 template <int VC>
 cudaError_t launch_fp32(const void* x, const void* wh, const void* prev,
-                        const void* wv, const void* bias, void* out, int B,
-                        int H, int W, int Cin, int Cprev, int Cout,
-                        cudaStream_t stream) {
+                        const void* wv, const void* bias, void* out, int N,
+                        const NetStrides& ns, int B, int H, int W, int Cin,
+                        int Cprev, int Cout, cudaStream_t stream) {
   const long long nq = (W + QX - 1) / QX;
   const long long total = (long long)B * H * nq * (Cout / CO);
   const long long blocks = (total + THREADS - 1) / THREADS;
   if (blocks == 0) return cudaSuccess;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  mcm_scale_kernel<VC><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  const dim3 grid((unsigned)blocks, (unsigned)N);
+  mcm_scale_kernel<VC><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(wh),
       static_cast<const float*>(prev), static_cast<const float*>(wv),
       static_cast<const float*>(bias), static_cast<float*>(out), B, H, W,
-      Cin, Cprev, Cout);
+      Cin, Cprev, Cout, ns);
   return cudaGetLastError();
 }
 
@@ -303,7 +329,7 @@ __global__ void __launch_bounds__(2 * BM)
 mcm_scale_mma(const bf16* __restrict__ x, const bf16* __restrict__ wh,
               const bf16* __restrict__ prev, const bf16* __restrict__ wv,
               const float* __restrict__ bias, bf16* __restrict__ out, int B,
-              int H, int W, int Cin, int Cprev, int Cout) {
+              int H, int W, int Cin, int Cprev, int Cout, NetStrides ns) {
   constexpr int NTHREADS = 2 * BM;
   constexpr int NT = BN / 8;        // mma n-tiles a warp holds
   constexpr int B_LD = BN + 8;      // B tile row stride in bf16
@@ -312,6 +338,15 @@ mcm_scale_mma(const bf16* __restrict__ x, const bf16* __restrict__ wh,
   __shared__ __align__(16) bf16 As[2][KGROUP][BM][A_LD];
   __shared__ __align__(16) bf16 Bs[2][KGROUP][KSTEP][B_LD];
 
+  const long long net = blockIdx.z;
+  x += net * ns.x;
+  wh += net * ns.wh;
+  if (prev != nullptr) {
+    prev += net * ns.prev;
+    wv += net * ns.wv;
+  }
+  bias += net * ns.bias;
+  out += net * ns.out;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long M = (long long)B * H * W;
   const long long m0 = (long long)blockIdx.x * BM;
@@ -444,61 +479,78 @@ mcm_scale_mma(const bf16* __restrict__ x, const bf16* __restrict__ wh,
 
 template <int BN>
 cudaError_t launch_mma(const void* x, const void* wh, const void* prev,
-                       const void* wv, const void* bias, void* out, int B,
-                       int H, int W, int Cin, int Cprev, int Cout,
-                       cudaStream_t stream) {
+                       const void* wv, const void* bias, void* out, int N,
+                       const NetStrides& ns, int B, int H, int W, int Cin,
+                       int Cprev, int Cout, cudaStream_t stream) {
   const long long M = (long long)B * H * W;
   const long long blocks = (M + BM_BF16 - 1) / BM_BF16;
   if (blocks == 0) return cudaSuccess;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)((Cout + BN - 1) / BN));
+  const dim3 grid((unsigned)blocks, (unsigned)((Cout + BN - 1) / BN),
+                  (unsigned)N);
   mcm_scale_mma<BM_BF16, BN><<<grid, 2 * BM_BF16, 0, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wh),
       static_cast<const bf16*>(prev), static_cast<const bf16*>(wv),
       static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W, Cin,
-      Cprev, Cout);
+      Cprev, Cout, ns);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch one output scale on `stream`. dtype: 0 = fp32, 1 = bf16 (x, wh,
-// prev, wv and out share it; bias is fp32). prev and wv are null for the
-// finest kept scale. Cout and Cprev must be multiples of 4, and every
-// pointer 16-byte aligned. Returns the launch's cudaError_t (0 on success).
+// Launch one output scale for N nets on `stream`. dtype: 0 = fp32, 1 =
+// bf16 (x, wh, prev, wv and out share it; bias is fp32). prev and wv are
+// null for the finest kept scale. s_*: the per-net element stride of each
+// tensor, 0 where every net shares it. Cout and Cprev must be multiples of
+// 4, every pointer and every net's slice 16-byte aligned, and
+// 1 <= N <= 65535. Returns the launch's cudaError_t (0 on success).
+extern "C" int mcm_scale_forward_nets(
+    const void* x, const void* wh, const void* prev, const void* wv,
+    const void* bias, void* out, int N, long long s_x, long long s_wh,
+    long long s_prev, long long s_wv, long long s_bias, long long s_out,
+    int B, int H, int W, int Cin, int Cprev, int Cout, int dtype,
+    void* stream) {
+  if (N < 1 || N > 65535 || s_x < 0 || s_wh < 0 || s_prev < 0 || s_wv < 0 ||
+      s_bias < 0 || s_out < 0 || B < 0 || H <= 0 || W <= 0 || Cin <= 0 ||
+      Cout <= 0 || Cout % CO != 0 ||
+      (prev != nullptr && (wv == nullptr || Cprev <= 0 || Cprev % 4 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const NetStrides ns{s_x, s_wh, s_prev, s_wv, s_bias, s_out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      if (Cin % 4 == 0)
+        return (int)launch_fp32<4>(x, wh, prev, wv, bias, out, N, ns, B, H,
+                                   W, Cin, Cprev, Cout, s);
+      return (int)launch_fp32<1>(x, wh, prev, wv, bias, out, N, ns, B, H, W,
+                                 Cin, Cprev, Cout, s);
+    case 1:
+      // The block's width: the least of 16, 32, 64, 128 that holds Cout
+      // (every flagship width), else 128-wide column tiles.
+      if (Cout <= 16)
+        return (int)launch_mma<16>(x, wh, prev, wv, bias, out, N, ns, B, H,
+                                   W, Cin, Cprev, Cout, s);
+      if (Cout <= 32)
+        return (int)launch_mma<32>(x, wh, prev, wv, bias, out, N, ns, B, H,
+                                   W, Cin, Cprev, Cout, s);
+      if (Cout <= 64)
+        return (int)launch_mma<64>(x, wh, prev, wv, bias, out, N, ns, B, H,
+                                   W, Cin, Cprev, Cout, s);
+      return (int)launch_mma<128>(x, wh, prev, wv, bias, out, N, ns, B, H, W,
+                                  Cin, Cprev, Cout, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launch one output scale of one net: mcm_scale_forward_nets with N = 1.
 extern "C" int mcm_scale_forward(const void* x, const void* wh,
                                  const void* prev, const void* wv,
                                  const void* bias, void* out, int B, int H,
                                  int W, int Cin, int Cprev, int Cout,
                                  int dtype, void* stream) {
-  if (B < 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cout % CO != 0 ||
-      (prev != nullptr && (wv == nullptr || Cprev <= 0 || Cprev % 4 != 0)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      if (Cin % 4 == 0)
-        return (int)launch_fp32<4>(x, wh, prev, wv, bias, out, B, H, W, Cin,
-                                   Cprev, Cout, s);
-      return (int)launch_fp32<1>(x, wh, prev, wv, bias, out, B, H, W, Cin,
-                                 Cprev, Cout, s);
-    case 1:
-      // The block's width: the least of 16, 32, 64, 128 that holds Cout
-      // (every flagship width), else 128-wide column tiles.
-      if (Cout <= 16)
-        return (int)launch_mma<16>(x, wh, prev, wv, bias, out, B, H, W, Cin,
-                                   Cprev, Cout, s);
-      if (Cout <= 32)
-        return (int)launch_mma<32>(x, wh, prev, wv, bias, out, B, H, W, Cin,
-                                   Cprev, Cout, s);
-      if (Cout <= 64)
-        return (int)launch_mma<64>(x, wh, prev, wv, bias, out, B, H, W, Cin,
-                                   Cprev, Cout, s);
-      return (int)launch_mma<128>(x, wh, prev, wv, bias, out, B, H, W, Cin,
-                                  Cprev, Cout, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return mcm_scale_forward_nets(x, wh, prev, wv, bias, out, 1, 0, 0, 0, 0, 0,
+                                0, B, H, W, Cin, Cprev, Cout, dtype, stream);
 }
 
 extern "C" const char* mcm_error_string(int code) {

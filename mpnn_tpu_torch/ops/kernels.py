@@ -14,14 +14,25 @@ computes the plain version `mcm_ref`. There is no fallback from the kernel
 to `mcm_ref`: a CUDA tensor either takes the kernel or raises.
 
 The stage is differentiable on both devices, as JAX's custom VJP makes it:
-the backward recomputes `mcm_ref` under autograd on the saved inputs (the
-counterpart of `_fused_mcm_bwd`, which differentiates `mcm_xla`). The conv
-is linear, so this is the exact derivative of the same function.
+the backward is `torch.func.vjp` of `mcm_ref` on the saved inputs (the
+counterpart of `_fused_mcm_bwd`, which takes `jax.vjp` of `mcm_xla`). The
+conv is linear, so this is the exact derivative of the same function.
 
-`fused_mcm.launches` counts kernel launches (one per output scale)."""
+The stage composes with `torch.func` (`vmap`, `grad`), as the vmapped
+k_cpt sweep (`models.steps.make_sweep_train_loop`) needs. Under `vmap` the
+CUDA kernel's net axis computes all nets in one launch per output scale,
+each input either batched (a per-net stride) or shared by every net
+(stride 0, no copy); on the CPU `mcm_ref` runs on each net's slice. The
+backward under `vmap` takes torch's conv batching rule (a grouped conv),
+the counterpart of XLA's.
+
+`fused_mcm.launches` counts kernel launches (one per output scale, of one
+net or of all nets); `fused_mcm.net_launches` counts those of the net
+axis alone."""
+
+import math
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import _build, config
 from .layers import _pool2, conv_same
@@ -85,37 +96,89 @@ def _split(L, tensors):
 
 
 class _FusedMCM(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or `mcm_ref` (CPU). Backward: autograd
-    through `mcm_ref` on the saved inputs. The lists go in flattened, as
-    `apply` takes tensors only as positional arguments."""
+    """Forward: the kernel (CUDA) or `mcm_ref` (CPU); under vmap, the
+    kernel's net axis or `mcm_ref` per net. Backward: `torch.func.vjp` of
+    `mcm_ref` on the saved inputs. The lists go in flattened, as `apply`
+    takes tensors only as positional arguments."""
 
     @staticmethod
-    def forward(ctx, L, supp, *tensors):
-        outs = _forward(*_split(L, tensors), supp)
+    def forward(L, supp, *tensors):
+        return tuple(_forward(*_split(L, tensors), supp))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        L, _, *tensors = inputs
         ctx.L = L
         ctx.save_for_backward(*tensors)
-        return tuple(outs)
 
     @staticmethod
-    @once_differentiable
+    def vmap(info, in_dims, L, supp, *tensors):
+        dims = in_dims[2:]
+        tensors = [t if d is None else t.movedim(d, 0)
+                   for t, d in zip(tensors, dims)]
+        outs = _forward(*_split(L, tensors), supp, n_nets=info.batch_size,
+                        batched=[d is not None for d in dims])
+        return tuple(outs), (0,) * L
+
+    @staticmethod
     def backward(ctx, *gs):
         need = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            outs = mcm_ref(*_split(ctx.L, ins))
-            wrt = [t for t, n in zip(ins, need) if n]
-            grads = iter(torch.autograd.grad(outs, wrt, gs))
+        saved = ctx.saved_tensors
+
+        def stage(*wrt):
+            it = iter(wrt)
+            ins = [next(it) if n else t for t, n in zip(saved, need)]
+            return tuple(mcm_ref(*_split(ctx.L, ins)))
+
+        _, vjp = torch.func.vjp(stage, *[t for t, n in zip(saved, need)
+                                         if n])
+        grads = iter(vjp(gs))
         return (None, None, *[next(grads) if n else None for n in need])
 
 
-def _forward(kept, whs, wvs, bs, supp):
+def _padded_stride(per, esize):
+    """The least multiple of 16 bytes, in elements, that holds `per`."""
+    q = 16 // esize
+    return -(-per // q) * q
+
+
+def _net_slices(t, batched):
+    """(tensor, per-net element stride, per-net shape) as the kernel reads
+    them: a shared tensor 16-byte aligned with stride 0; a batched one
+    (nets first) with every net's slice 16-byte aligned, copied into a
+    padded (nets, stride) buffer where its size or base does not allow
+    that."""
+    if not batched:
+        return _aligned(t), 0, tuple(t.shape)
+    t = t.contiguous()
+    n, shape = t.shape[0], tuple(t.shape[1:])
+    per = t[0].numel()
+    stride = _padded_stride(per, t.element_size())
+    if stride != per or t.data_ptr() % 16:
+        buf = t.new_empty((n, stride))
+        buf[:, :per].copy_(t.reshape(n, per))
+        t = buf
+    return t, stride, shape
+
+
+def _forward(kept, whs, wvs, bs, supp, n_nets=0, batched=None):
     """The stage's outputs, without autograd: `mcm_ref` if every tensor is
-    on the CPU, else the kernel, one launch per output scale."""
+    on the CPU, else the kernel, one launch per output scale.
+
+    With n_nets = N (under vmap), the tensors flagged in `batched` carry
+    the nets on a leading axis and the others are shared by every net; the
+    outputs carry the nets first. On CUDA each scale is one launch of the
+    kernel's net axis; on the CPU `mcm_ref` runs on each net's slice."""
     L = len(whs)
     tensors = kept + whs + wvs + bs
+    batched = batched or [False] * len(tensors)
     if all(t.device.type == "cpu" for t in tensors):
-        return mcm_ref(kept, whs, wvs, bs)
+        if not n_nets:
+            return mcm_ref(kept, whs, wvs, bs)
+        per_net = [mcm_ref(*_split(L, [t[i] if b else t for t, b in
+                                       zip(tensors, batched)]))
+                   for i in range(n_nets)]
+        return [torch.stack(o) for o in zip(*per_net)]
     dev = kept[0].device
     _check(dev.type == "cuda" and all(t.device == dev for t in tensors),
            "tensors must all be on the CPU or all on one CUDA device, got "
@@ -124,58 +187,83 @@ def _forward(kept, whs, wvs, bs, supp):
            % (supp,))
     cdt = config.compute_dtype or torch.float32
     _check(cdt in _DTYPE_CODE, "compute dtype %s not supported" % cdt)
-    for x in kept:
+    for x, b in zip(kept, batched):
         _check(x.dtype in _DTYPE_CODE, "input dtype %s not supported"
                % x.dtype)
-        _check(x.is_contiguous(), "inputs must be contiguous NHWC")
-    kept = [_aligned(x.to(cdt)) for x in kept]
-    whs = [_aligned(w.to(cdt).contiguous()) for w in whs]
-    wvs = [_aligned(w.to(cdt).contiguous()) for w in wvs]
-    bs = [b.to(torch.float32).contiguous() for b in bs]
+        _check(b or x.is_contiguous(), "inputs must be contiguous NHWC")
+    tensors = [t.to(cdt) for t in kept] + [
+        t.to(cdt).contiguous() for t in whs + wvs] + [
+        t.to(torch.float32).contiguous() for t in bs]
+    kept, whs, wvs, bs = _split(L, [_net_slices(t, b)
+                                    for t, b in zip(tensors, batched)])
 
-    B = kept[0].shape[0]
+    B = kept[0][2][0]
+    N = max(n_nets, 1)
     outs = []
     for j in range(L):
-        x = kept[j]
-        _check(x.dim() == 4 and x.shape[0] == B, "scale %d: expected "
-               "(B, H, W, C) with B=%d, got %s" % (j, B, tuple(x.shape)))
-        _, H, W, Cin = x.shape
-        Cout = whs[j].shape[-1]
-        _check(tuple(whs[j].shape) == (3, 3, Cin, Cout) and Cout % 4 == 0,
+        (x, s_x, xshape), (wh, s_wh, wshape), (b, s_b, bshape) = (
+            kept[j], whs[j], bs[j])
+        _check(len(xshape) == 4 and xshape[0] == B, "scale %d: expected "
+               "(B, H, W, C) with B=%d, got %s" % (j, B, xshape))
+        _, H, W, Cin = xshape
+        Cout = wshape[-1]
+        _check(wshape == (3, 3, Cin, Cout) and Cout % 4 == 0,
                "w_horz_%d: expected (3, 3, %d, Cout) with Cout a multiple "
-               "of 4, got %s" % (j, Cin, tuple(whs[j].shape)))
-        _check(tuple(bs[j].shape) == (Cout,), "b_%d: expected (%d,), got %s"
-               % (j, Cout, tuple(bs[j].shape)))
+               "of 4, got %s" % (j, Cin, wshape))
+        _check(bshape == (Cout,), "b_%d: expected (%d,), got %s"
+               % (j, Cout, bshape))
         if j > 0:
-            prev = outs[j - 1]
-            _check(prev.shape[1] == 2 * H and prev.shape[2] == 2 * W,
+            prev, s_prev, pshape = outs[j - 1]
+            _check(pshape[1] == 2 * H and pshape[2] == 2 * W,
                    "scale %d is %dx%d but scale %d pools to %dx%d"
-                   % (j, H, W, j - 1, prev.shape[1] // 2, prev.shape[2] // 2))
-            Cprev = prev.shape[-1]
-            _check(tuple(wvs[j - 1].shape) == (3, 3, Cprev, Cout),
+                   % (j, H, W, j - 1, pshape[1] // 2, pshape[2] // 2))
+            Cprev = pshape[-1]
+            wv, s_wv, vshape = wvs[j - 1]
+            _check(vshape == (3, 3, Cprev, Cout),
                    "w_vert_%d: expected (3, 3, %d, %d), got %s"
-                   % (j - 1, Cprev, Cout, tuple(wvs[j - 1].shape)))
-            prev_ptr, wv_ptr = prev.data_ptr(), wvs[j - 1].data_ptr()
+                   % (j - 1, Cprev, Cout, vshape))
+            prev_ptr, wv_ptr = prev.data_ptr(), wv.data_ptr()
         else:
-            Cprev, prev_ptr, wv_ptr = 0, None, None
-        out = torch.empty((B, H, W, Cout), dtype=cdt, device=dev)
-        _launch(dev, x.data_ptr(), whs[j].data_ptr(), prev_ptr, wv_ptr,
-                bs[j].data_ptr(), out.data_ptr(), B, H, W, Cin, Cprev, Cout,
-                _DTYPE_CODE[cdt])
-        outs.append(out)
-    return outs
+            Cprev, prev_ptr, wv_ptr, s_prev, s_wv = 0, None, None, 0, 0
+        oshape = (B, H, W, Cout)
+        args = (x.data_ptr(), wh.data_ptr(), prev_ptr, wv_ptr, b.data_ptr())
+        tail = (B, H, W, Cin, Cprev, Cout, _DTYPE_CODE[cdt])
+        if n_nets:
+            s_out = _padded_stride(B * H * W * Cout, x.element_size())
+            out = torch.empty((N, s_out), dtype=cdt, device=dev)
+            _launch_nets(dev, *args, out.data_ptr(), N, s_x, s_wh, s_prev,
+                         s_wv, s_b, s_out, *tail)
+        else:
+            s_out = 0
+            out = torch.empty(oshape, dtype=cdt, device=dev)
+            _launch(dev, *args, out.data_ptr(), *tail)
+        outs.append((out, s_out, oshape))
+    if not n_nets:
+        return [o for o, _, _ in outs]
+    return [o[:, :math.prod(s)].unflatten(1, s) for o, _, s in outs]
 
 
 fused_mcm.launches = 0
+fused_mcm.net_launches = 0
 
 
-def _launch(dev, *args):
+def _call(dev, entry, *args):
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mcm_scale_forward(*args, stream)
+        rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         raise RuntimeError("fused_mcm kernel launch failed: CUDA error %d "
                            "(%s)" % (rc, lib.mcm_error_string(rc).decode()))
     fused_mcm.launches += 1
 
+
+def _launch(dev, *args):
+    """One scale of one net."""
+    _call(dev, "mcm_scale_forward", *args)
+
+
+def _launch_nets(dev, *args):
+    """One scale of every net of a sweep, through the kernel's net axis."""
+    _call(dev, "mcm_scale_forward_nets", *args)
+    fused_mcm.net_launches += 1

@@ -11,13 +11,22 @@ n_iter is off a boundary, evaluate and write once more at the end.
 `mpnn_tpu`'s CLI writes, in its formats: its `read_net` reads the
 checkpoints and its figure scripts the stats.
 
+With --vmap-sweep, an experiment that sweeps k_cpt (`sweep_k_cpts`: the
+actor and critic sweeps) trains all its nets at once, one vmapped step
+per iteration (`make_sweep_train_loop`) and one vmapped evaluation pass
+per split, and writes every net's files as the serial path does. With
+--net, or for an experiment without `sweep_k_cpts` (the SR sweeps), it
+runs serially, as `mpnn_tpu` does.
+
     python -m mpnn_tpu_torch.data.prep --synthetic --small --data-dir D/data
     python -m mpnn_tpu_torch.train synth-ac --net 4 --n-iter 40 --t-log 20 \\
         --data-root D --out-root D/nets
+    python -m mpnn_tpu_torch.train synth-ac --vmap-sweep --n-iter 40 \\
+        --t-log 20 --data-root D --out-root D/nets
 
 Runs on CUDA unless --device cpu is given. Not ported: the `*-tree`
-experiments, the vmapped sweep (--vmap-sweep), meshes and multi-host
-runs, the adaptive registry, --profile-dir and the TF1 parity modes."""
+experiments, meshes (the sweep mesh included) and multi-host runs, the
+adaptive registry, --profile-dir and the TF1 parity modes."""
 
 import json
 import os
@@ -31,9 +40,11 @@ from . import experiments as cfg
 from . import resolve_device, synchronize
 from .data.dataset import Dataset
 from .models.steps import (Schedules, init_training, make_eval_split_fn,
+                           make_sweep_eval_split_fn, make_sweep_train_loop,
                            make_train_loop)
-from .utils.desc import net_desc, render_net_desc
+from .utils.desc import net_desc, render_net_desc, sweep_net_descs
 from .utils.serdes import atomic_save, read_net, write_net
+from .utils.tree import stack_trees, tree_to_host, unstack_tree
 
 __all__ = ["train_one_net", "train_experiment", "main"]
 
@@ -84,6 +95,51 @@ def _write_epoch_outputs(out_dir, i, t, desc, net, params, state, vel, *,
         print(text)
 
 
+def _train_in_spans(trees, train_span, evaluate, write, *, t_start, n_iter,
+                    t_log, device, verbose, tag=""):
+    """Train from t_start to n_iter in spans that end on t_log boundaries
+    (`trees = train_span(trees, t, n)`, one call a span, no host round
+    trip inside it); at every boundary, and at n_iter off one, `desc =
+    evaluate(t, trees)` and `write(t, desc, trees)`. Returns (trees, the
+    last desc, clock): the host seconds spent training (to the device's
+    end of each span), evaluating and writing, the evaluations, and the
+    whole run's seconds."""
+    clock = {"train_s": 0.0, "eval_s": 0.0, "write_s": 0.0, "evals": 0}
+    desc = None
+
+    def eval_and_write(t):
+        t0 = time.perf_counter()
+        desc = evaluate(t, trees)
+        t1 = time.perf_counter()
+        write(t, desc, trees)
+        clock["eval_s"] += t1 - t0
+        clock["write_s"] += time.perf_counter() - t1
+        clock["evals"] += 1
+        return desc
+
+    t0_wall = time.perf_counter()
+    t = t_start
+    last_written = t_start if t_start else -1
+    while t < n_iter:
+        n_chunk = min(t_log - (t % t_log), n_iter - t)
+        ts = time.perf_counter()
+        trees = train_span(trees, t, n_chunk)
+        synchronize(device)
+        clock["train_s"] += time.perf_counter() - ts
+        t += n_chunk
+        if verbose:
+            print("  --- Iteration %i%s ---\r" % (t, tag), end="",
+                  flush=True)
+        if t % t_log == 0:
+            desc = eval_and_write(t)
+            last_written = t
+    if last_written != n_iter:
+        # n_iter off a t_log boundary: evaluate and write the final state.
+        desc = eval_and_write(n_iter)
+    clock["total_s"] = time.perf_counter() - t0_wall
+    return trees, desc, clock
+
+
 def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
                   batch_size, out_dir=None, net_index=0, seed=0,
                   verbose=True, resume=False, timings=None):
@@ -118,65 +174,143 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
              else float(np.float32(getattr(net.hypers, "k_cpt", 0.0))))
     eval_split = make_eval_split_fn(net, batch_size)
     x0_tr, y_tr, m_sym = dataset.train_arrays
-    clock = {"train_s": 0.0, "eval_s": 0.0, "write_s": 0.0, "evals": 0}
-    desc = None
 
-    def eval_and_write(t):
-        t0 = time.perf_counter()
-        desc = net_desc(net, dataset, params, state, batch_size=batch_size,
+    def train_span(trees, t, n):
+        return loop(*trees, t, seed + 1, x0_tr, y_tr, m_sym, n, k_cpt)[:3]
+
+    def evaluate(t, trees):
+        return net_desc(net, dataset, trees[0], trees[1],
+                        batch_size=batch_size,
                         tau=_tau_at(tau_fn, t - 1, net),
                         eval_split=eval_split)
-        t1 = time.perf_counter()
-        if out_dir is not None:
-            _write_epoch_outputs(out_dir, net_index, t, desc, net,
-                                 params, state, vel, verbose=verbose)
-        clock["eval_s"] += t1 - t0
-        clock["write_s"] += time.perf_counter() - t1
-        clock["evals"] += 1
-        return desc
 
-    t0_wall = time.perf_counter()
-    t = t_start
-    last_written = t_start if t_start else -1
-    while t < n_iter:
-        # One span per t_log window: no host round trip inside it.
-        n_chunk = min(t_log - (t % t_log), n_iter - t)
-        ts = time.perf_counter()
-        params, state, vel, cs = loop(params, state, vel, t, seed + 1,
-                                      x0_tr, y_tr, m_sym, n_chunk, k_cpt)
-        synchronize(device)
-        clock["train_s"] += time.perf_counter() - ts
-        t += n_chunk
-        if verbose:
-            print("  --- Iteration %i ---\r" % t, end="", flush=True)
-        if t % t_log == 0:
-            desc = eval_and_write(t)
-            last_written = t
-    if last_written != n_iter:
-        # n_iter off a t_log boundary: evaluate and write the final state.
-        desc = eval_and_write(n_iter)
-    dt = time.perf_counter() - t0_wall
+    def write(t, desc, trees):
+        if out_dir is not None:
+            _write_epoch_outputs(out_dir, net_index, t, desc, net, *trees,
+                                 verbose=verbose)
+
+    (params, state, vel), desc, clock = _train_in_spans(
+        (params, state, vel), train_span, evaluate, write, t_start=t_start,
+        n_iter=n_iter, t_log=t_log, device=device, verbose=verbose)
+    _report(clock, t_start, n_iter, batch_size, 1, verbose, timings)
+    return params, state, vel, desc
+
+
+def _report(clock, t_start, n_iter, batch_size, n_nets, verbose, timings):
+    """Print a run's rates (over all nets for a sweep) and fill `timings`
+    with the clock, the steps and the batch size (and n_nets for a
+    sweep)."""
     n_run = n_iter - t_start
+    imgs = n_nets * n_run * batch_size
+    dt, train_s = clock["total_s"], clock["train_s"]
     if verbose:
-        print("\n  [%i iters in %.1fs — %.0f img/s]"
-              % (n_run, dt, n_run * batch_size / max(dt, 1e-9)))
-        print("  [training %.1fs — %.0f img/s; %i evals in %.1fs; writes "
-              "%.1fs]" % (clock["train_s"], n_run * batch_size
-                          / max(clock["train_s"], 1e-9), clock["evals"],
-                          clock["eval_s"], clock["write_s"]))
+        if n_nets == 1:
+            print("\n  [%i iters in %.1fs — %.0f img/s]"
+                  % (n_run, dt, imgs / max(dt, 1e-9)))
+        else:
+            print("\n  [sweep of %i nets x %i iters in %.1fs — %.0f img/s "
+                  "aggregate]" % (n_nets, n_run, dt, imgs / max(dt, 1e-9)))
+        print("  [training %.1fs — %.0f img/s%s; %i evals in %.1fs; writes "
+              "%.1fs]" % (train_s, imgs / max(train_s, 1e-9),
+                          " aggregate" if n_nets > 1 else "",
+                          clock["evals"], clock["eval_s"], clock["write_s"]))
     if timings is not None:
         timings.update(clock, t_start=t_start, n_iter=n_iter, steps=n_run,
-                       batch_size=batch_size, total_s=dt)
-    return params, state, vel, desc
+                       batch_size=batch_size)
+        if n_nets > 1:
+            timings["n_nets"] = n_nets
+
+
+def _read_sweep(out_dir, n_nets, device):
+    """[(params, state, vel)] and t of every member's checkpoint, or None
+    unless each one exists, carries the momentum and the step, and they
+    agree on the step (a reference-schema checkpoint cannot seed the
+    sweep)."""
+    paths = [os.path.join(out_dir, "%.4i.npy" % i) for i in range(n_nets)]
+    if not all(os.path.exists(p) for p in paths):
+        return None
+    loaded = [read_net(p, device) for p in paths]
+    extras = [ex for _, _, _, ex in loaded]
+    if not all(ex is not None and "vel" in ex and "t" in ex
+               for ex in extras):
+        return None
+    ts = {int(ex["t"]) for ex in extras}
+    if len(ts) != 1:
+        return None
+    return [(p, s, ex["vel"]) for _, p, s, ex in loaded], ts.pop()
+
+
+def _train_sweep(expt, expt_name, dataset, *, n_iter, t_log, batch_size,
+                 out_dir, seed, verbose=True, resume=False, timings=None):
+    """Train a k_cpt sweep's nets at once (`make_sweep_train_loop`),
+    member i drawn as the serial path draws net i (`init_training(net,
+    seed + i)`), the shared batch stream from seed + 1. At every t_log
+    boundary (and at n_iter off one) it evaluates every member in one
+    vmapped pass per split and writes each net's files as
+    `train_one_net` does; with resume=True it continues from the
+    members' checkpoints when `_read_sweep` accepts them. Returns
+    (params_s, state_s, vel_s, descs) of the stacked trees; with a
+    `timings` dict, fills it as `train_one_net` does, plus n_nets."""
+    k_cpts = np.asarray(expt.sweep_k_cpts, np.float32)
+    n_nets = len(k_cpts)
+    device = dataset.device
+    nets = [expt.nets[i](dataset.x0_shape, dataset.y_shape)
+            for i in range(n_nets)]
+    net = nets[0]  # the architecture every member shares
+    schedules = Schedules(lr=cfg.λ_lrn, tau=expt.tau)
+    loop = make_sweep_train_loop(net, batch_size, schedules)
+    eval_split = make_sweep_eval_split_fn(net, batch_size)
+    x0_tr, y_tr, m_sym = dataset.train_arrays
+    k_arr = torch.as_tensor(k_cpts, device=device)
+
+    t_start = 0
+    found = _read_sweep(out_dir, n_nets, device) if resume else None
+    if found is not None:
+        members, t_start = found
+        if verbose:
+            print("  [resuming %s sweep at t=%i]" % (expt_name, t_start))
+    else:
+        members = [init_training(net, seed + i, device)
+                   for i in range(n_nets)]
+        for i in range(n_nets):
+            _fresh_log(out_dir, i)
+    trees = tuple(stack_trees([m[j] for m in members]) for j in range(3))
+    del members
+
+    def train_span(trees, t, n):
+        return loop(*trees, t, seed + 1, x0_tr, y_tr, m_sym, n, k_arr)[:3]
+
+    def evaluate(t, trees):
+        return sweep_net_descs(net, dataset, trees[0], trees[1], k_cpts,
+                               batch_size=batch_size,
+                               tau=_tau_at(expt.tau, t - 1, net),
+                               eval_split=eval_split)
+
+    def write(t, descs, trees):
+        # One device-to-host copy of the stacked trees, then per-net views.
+        host = tree_to_host(trees)
+        for i in range(n_nets):
+            _write_epoch_outputs(out_dir, i, t, descs[i], nets[i],
+                                 *(unstack_tree(h, i) for h in host),
+                                 verbose=verbose)
+
+    trees, descs, clock = _train_in_spans(
+        trees, train_span, evaluate, write, t_start=t_start, n_iter=n_iter,
+        t_log=t_log, device=device, verbose=verbose,
+        tag=" (sweep of %i)" % n_nets)
+    _report(clock, t_start, n_iter, batch_size, n_nets, verbose, timings)
+    return (*trees, descs)
 
 
 def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
                      net_indices=None, data_root=".", out_root="nets",
                      seed=0, verbose=True, resume=False, device="cuda",
-                     timings=None):
+                     timings=None, vmap_sweep=False):
     """Train the nets of a registry experiment one after another (all, or
-    `net_indices`) on `device`. With a `timings` list, one dict per net is
-    appended (see `train_one_net`)."""
+    `net_indices`) on `device`; with vmap_sweep, an experiment with
+    `sweep_k_cpts` and no `net_indices` trains all its nets at once
+    (`_train_sweep`). With a `timings` list, one dict per net (one for the
+    whole sweep) is appended (see `train_one_net`)."""
     if expt_name in cfg.TREE_EXPERIMENTS:
         raise ValueError(
             "%r trains dr_tree nets, which are not ported to mpnn_tpu_torch "
@@ -191,6 +325,15 @@ def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
     indices = (net_indices if net_indices is not None
                else range(len(expt.nets)))
     _write_manifest(out_dir, dataset)
+    if (vmap_sweep and getattr(expt, "sweep_k_cpts", None) is not None
+            and net_indices is None):
+        rec = {} if timings is not None else None
+        _train_sweep(expt, expt_name, dataset, n_iter=n_iter, t_log=t_log,
+                     batch_size=batch_size, out_dir=out_dir, seed=seed,
+                     verbose=verbose, resume=resume, timings=rec)
+        if timings is not None:
+            timings.append(dict(rec, expt=expt_name, net_index=None))
+        return
     for i in indices:
         net = expt.nets[i](dataset.x0_shape, dataset.y_shape)
         schedules = Schedules(lr=cfg.λ_lrn, tau=expt.tau)
@@ -224,6 +367,10 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--resume", action="store_true",
                         help="continue from the latest periodic checkpoint")
+    parser.add_argument("--vmap-sweep", action="store_true",
+                        help="train a whole k_cpt sweep (the actor and "
+                             "critic experiments) at once, one vmapped "
+                             "step per iteration")
     parser.add_argument("--analytic-l2", action="store_true",
                         help="weight L2 as a closed-form decay gradient "
                              "instead of in-graph reductions")
@@ -250,7 +397,7 @@ def main(argv=None):
         args.expt, n_iter=args.n_iter, t_log=args.t_log,
         batch_size=args.batch_size, net_indices=args.net,
         data_root=args.data_root, out_root=args.out_root, seed=args.seed,
-        resume=args.resume, device=device)
+        resume=args.resume, device=device, vmap_sweep=args.vmap_sweep)
 
 
 if __name__ == "__main__":

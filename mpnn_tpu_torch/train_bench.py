@@ -11,6 +11,13 @@ and a momentum update. Prints one JSON line: `value` is the median of the
 windows' rates, `window_values` each window's, with the loss at the first
 and the last step and the fused_mcm launches per step.
 
+With --sweep N it measures the k_cpt sweep instead (`bench.py`'s
+workload): N flagship actor chains (`ac_chain(k_cpt=0)`, member i drawn
+from --seed + i, at k_cpts[i]) trained at once by
+`make_sweep_train_loop`, --batch-size per net; each window is one call of
+the loop for --n-steps steps (one gather, then the steps), and `value` is
+the aggregate rate, N x batch x steps over the window's time.
+
 With --profile DIR it then traces --n-steps more steps with
 torch.profiler, writes the Chrome trace into DIR and prints a second JSON
 line: the device time per step split into the fused_mcm forward, the
@@ -20,6 +27,7 @@ the rest, the device operations per step, and the device's idle share.
 Runs on CUDA unless --device cpu is given.
 
     python -m mpnn_tpu_torch.train_bench --precision bf16
+    python -m mpnn_tpu_torch.train_bench --sweep 8 --precision bf16
 """
 
 import json
@@ -30,8 +38,10 @@ from argparse import ArgumentParser
 
 import torch
 
-# Autograd node of fused_mcm's backward, as the profiler names its range.
-_MCM_BACKWARD = "_FusedMCMBackward"
+# Autograd node of fused_mcm's backward, as the profiler names its range:
+# _FusedMCMBackward, or under torch.func (the sweep) that of the class
+# functorch generates, _FusedMCMGeneratedBackward.
+_MCM_BACKWARD = ("_FusedMCM", "Backward")
 TOP_KERNELS = 15  # device operations listed by time in the profile line
 
 
@@ -47,6 +57,24 @@ def build(seed=0, device="cuda", checkpoint=None):
     from .experiments import ac_chain, k_cpts
     net = ac_chain(k_cpt=k_cpts[4])((32, 32, 3), (10,))
     return (net,) + init_training(net, seed, device)
+
+
+def build_sweep(n_nets, seed=0, device="cuda"):
+    """(net, params_s, state_s, vel_s, k_cpts) of a sweep of n_nets
+    flagship actor chains, member i drawn from seed + i, as `bench.py`
+    builds it: stacked trees and the members' prices on the device."""
+    from .experiments import ac_chain, k_cpts
+    from .models.steps import init_training
+    from .utils.tree import stack_trees
+    if not 1 <= n_nets <= len(k_cpts):
+        raise ValueError("a sweep has 1 to %d nets (got %d)"
+                         % (len(k_cpts), n_nets))
+    net = ac_chain(k_cpt=0.0)((32, 32, 3), (10,))
+    members = [init_training(net, seed + i, device) for i in range(n_nets)]
+    trees = [stack_trees([m[j] for m in members]) for j in range(3)]
+    k_arr = torch.tensor(k_cpts[:n_nets], dtype=torch.float32,
+                         device=device)
+    return (net, *trees, k_arr)
 
 
 def train_data(net, device, n_tr=1024, seed=0):
@@ -75,14 +103,15 @@ def step_split(prof, n_steps):
                and e.name != "optimizer"]
     total = sum(k.device_time_total for k in kernels)
 
-    def under(name):
+    def under(*names):
         return sum(e.device_time_total for e in events
                    if e.device_type == torch.autograd.DeviceType.CPU
-                   and name in e.name and e.cpu_parent is None)
+                   and all(n in e.name for n in names)
+                   and e.cpu_parent is None)
 
     fwd = sum(k.device_time_total for k in kernels
               if "mcm_scale_" in k.name)
-    bwd = under(_MCM_BACKWARD)
+    bwd = under(*_MCM_BACKWARD)
     opt = under("optimizer")
     spans = sorted((k.time_range.start, k.time_range.end) for k in kernels)
     busy, end = 0.0, float("-inf")
@@ -125,13 +154,17 @@ def main(argv=None):
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="trace --n-steps more steps into DIR and "
                              "print the step's time split")
+    parser.add_argument("--sweep", type=int, default=0, metavar="N",
+                        help="measure a sweep of N flagship actor chains "
+                             "trained at once (aggregate img/s)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for tests)")
     args = parser.parse_args(argv)
 
     from . import resolve_device, synchronize
     from .experiments import λ_lrn, τ_ds
-    from .models.steps import Schedules, make_train_step
+    from .models.steps import (Schedules, make_sweep_train_loop,
+                               make_train_step)
     from .ops import config
     from .ops.kernels import fused_mcm
 
@@ -143,36 +176,56 @@ def main(argv=None):
     config.set_compute_dtype(torch.bfloat16 if args.precision == "bf16"
                              else None)
 
-    net, params, state, vel = build(args.seed, device, args.checkpoint)
-    x0_tr, y_tr, m_sym = train_data(net, device, seed=args.seed)
     B = args.batch_size
-    step = make_train_step(net, B, Schedules(lr=λ_lrn, tau=τ_ds))
+    sched = Schedules(lr=λ_lrn, tau=τ_ds)
+    if args.sweep:
+        net, params, state, vel, k_arr = build_sweep(args.sweep, args.seed,
+                                                     device)
+        loop = make_sweep_train_loop(net, B, sched)
+        n_per_call, n_nets = args.n_steps, args.sweep
+        metric = "train-sweep (%s, %d nets x batch %d)" % (
+            args.precision, n_nets, B)
+    else:
+        net, params, state, vel = build(args.seed, device, args.checkpoint)
+        step = make_train_step(net, B, sched)
+        n_per_call, n_nets = 1, 1
+        metric = "train-step (%s, batch %d)" % (args.precision, B)
+    x0_tr, y_tr, m_sym = train_data(net, device, seed=args.seed)
     gen = torch.Generator(device).manual_seed(args.seed)
-
     t = 0
-    params, state, vel, c = step(params, state, vel, t, gen, x0_tr, y_tr,
-                                 m_sym)  # warm-up
-    loss_first = float(c)
+
+    def run(params, state, vel):
+        """n_per_call steps from t: the loop's call or one step."""
+        if args.sweep:
+            params, state, vel, cs = loop(params, state, vel, t, args.seed,
+                                          x0_tr, y_tr, m_sym, n_per_call,
+                                          k_arr)
+            return params, state, vel, cs[-1]
+        return step(params, state, vel, t, gen, x0_tr, y_tr, m_sym)
+
+    params, state, vel, c = run(params, state, vel)  # warm-up
+    t += n_per_call
+    loss_first = c.tolist()
     launches0 = fused_mcm.launches
     rates = []
     for _ in range(args.n_windows):
         synchronize(device)
         t0 = time.perf_counter()
-        for _ in range(args.n_steps):
-            t += 1
-            params, state, vel, c = step(params, state, vel, t, gen, x0_tr,
-                                         y_tr, m_sym)
+        for _ in range(args.n_steps // n_per_call):
+            params, state, vel, c = run(params, state, vel)
+            t += n_per_call
         synchronize(device)
-        rates.append(args.n_steps * B / (time.perf_counter() - t0))
+        rates.append(n_nets * args.n_steps * B / (time.perf_counter() - t0))
     n_timed = args.n_windows * args.n_steps
     print(json.dumps({
-        "metric": "train-step (%s, batch %d)" % (args.precision, B),
+        "metric": metric,
         "value": statistics.median(rates),
         "unit": "images/sec",
         "window_values": rates,
         "window_steps": args.n_steps,
+        "nets": n_nets,
         "loss_first": loss_first,
-        "loss_last": float(c),
+        "loss_last": c.tolist(),
         "fused_mcm_launches_per_step": (fused_mcm.launches - launches0)
         / n_timed,
         "device": (torch.cuda.get_device_name(device)
@@ -185,16 +238,15 @@ def main(argv=None):
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
-            for _ in range(args.n_steps):
-                t += 1
-                params, state, vel, c = step(params, state, vel, t, gen,
-                                             x0_tr, y_tr, m_sym)
+            for _ in range(args.n_steps // n_per_call):
+                params, state, vel, c = run(params, state, vel)
+                t += n_per_call
             synchronize(device)
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            args.profile, "train_%s.json" % args.precision))
-        print(json.dumps({"profile": "train-step (%s, batch %d)"
-                          % (args.precision, B), "steps": args.n_steps,
+            args.profile, "train_%s%s.json" % (
+                "sweep%d_" % n_nets if args.sweep else "", args.precision)))
+        print(json.dumps({"profile": metric, "steps": args.n_steps,
                           **step_split(prof, args.n_steps)}), flush=True)
 
 

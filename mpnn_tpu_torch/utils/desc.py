@@ -11,29 +11,36 @@ with scalar stats as Python floats and per-class stats as lists. Sink
 order is meaningful (the figure scripts walk sinks[0] / sinks[1]).
 
 The rendering reproduces the reference's box-drawing log format byte for
-byte: the appended `-log.txt` files are part of the output contract. The
-descriptors of a vmapped sweep (`sweep_net_descs`) are not ported."""
+byte: the appended `-log.txt` files are part of the output contract.
+`sweep_net_descs` gives every member's descriptor of a vmapped k_cpt
+sweep from one pass per split."""
 
 import numpy as np
 import torch
 
-from ..models.steps import make_eval_split_fn
+from ..models.steps import make_eval_split_fn, make_sweep_eval_split_fn
 
-__all__ = ["net_desc", "render_net_desc", "mean_split_stats"]
+__all__ = ["net_desc", "render_net_desc", "mean_split_stats",
+           "sweep_net_descs"]
 
 
 def mean_split_stats(net, eval_split, params, state, dataset, split,
                      batch_size=128, tau=None, k_cpt=None, eval_key=None):
     """Dataset-mean stats of one split: {stat key: float | list}, keys in
-    sorted order (as JAX's pytree of sums has them, so the descriptors'
-    dicts come out in the same order). The sums come to the host in one
-    copy."""
+    sorted order (`_host_means`)."""
     x0s, ys, masks, count = dataset.padded_split(split, batch_size)
     if tau is None:
         tau = float(getattr(net.hypers, "τ", 1.0))
     if k_cpt is None:
         k_cpt = getattr(net.hypers, "k_cpt", 0.0)
     sums = eval_split(params, state, x0s, ys, masks, tau, k_cpt, eval_key)
+    return {k: v.tolist() for k, v in _host_means(sums, count).items()}
+
+
+def _host_means(sums, count):
+    """{stat key: numpy array of sum / count}, keys in sorted order (as
+    JAX's pytree of sums has them, so the descriptors' dicts come out in
+    the same order); the sums come to the host in one copy."""
     keys = sorted(sums)
     flat = torch.cat([sums[k].reshape(-1).float() for k in keys]).cpu()
     flat = flat.numpy()
@@ -41,7 +48,7 @@ def mean_split_stats(net, eval_split, params, state, dataset, split,
     for k in keys:
         shape = tuple(sums[k].shape)
         n = int(np.prod(shape))
-        out[k] = (flat[i:i + n].reshape(shape) / count).tolist()
+        out[k] = flat[i:i + n].reshape(shape) / count
         i += n
     return out
 
@@ -68,7 +75,11 @@ def net_desc(net, dataset, params, state, batch_size=128, tau=None,
                                 "tr", batch_size, tau, k_cpt, eval_key)
     stats_ts = mean_split_stats(net, eval_split, params, state, dataset,
                                 "ts", batch_size, tau, k_cpt, eval_key)
+    return _desc(net, stats_tr, stats_ts)
 
+
+def _desc(net, stats_tr, stats_ts):
+    """The descriptor of one net from its two splits' mean stats."""
     def net_keys(d):
         return {k[len("net/"):]: v for k, v in d.items()
                 if k.startswith("net/")}
@@ -79,6 +90,29 @@ def net_desc(net, dataset, params, state, batch_size=128, tau=None,
         "stats_ts": net_keys(stats_ts),
         "root": _layer_desc(net.root, stats_tr, stats_ts),
     }
+
+
+def sweep_net_descs(net, dataset, params_s, state_s, k_cpts, *,
+                    batch_size=128, tau=None, eval_split=None,
+                    eval_key=None):
+    """Every member's descriptor of a k_cpt sweep, from one vmapped pass
+    per split (`models.steps.make_sweep_eval_split_fn`) over the stacked
+    trees; each dict is schema-identical to `net_desc`'s."""
+    if eval_split is None:
+        eval_split = make_sweep_eval_split_fn(net, batch_size)
+    if tau is None:
+        tau = float(getattr(net.hypers, "τ", 1.0))
+    k_arr = torch.as_tensor(np.asarray(k_cpts, np.float32),
+                            device=dataset.device)
+    means = {}
+    for split in ("tr", "ts"):
+        x0s, ys, masks, count = dataset.padded_split(split, batch_size)
+        means[split] = _host_means(eval_split(params_s, state_s, x0s, ys,
+                                              masks, tau, k_arr, eval_key),
+                                   count)
+    return [_desc(net, *({k: v[i].tolist() for k, v in means[split].items()}
+                         for split in ("tr", "ts")))
+            for i in range(len(k_arr))]
 
 
 ################################################################################
