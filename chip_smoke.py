@@ -20,18 +20,25 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               graph replay, `device_ms`);
               four shapes off the flagship's path are checked too (widths
               12/6/3 at batch 7; output widths 12, 20 and 160; input
-              channels 3, 4 and 24), and
+              channels 3, 4 and 24; printed as `kernel_off_path`), and
               stages 4-7 at batch 32 (the routed engine's deep buffers) are
               checked and timed in bf16. Each bf16 stage's error against
               mcm_ref run in fp32 on the same bf16-valued inputs is printed
-              (not a gate).
+              (not a gate). The fp32 kernel (3xTF32 on the tensor cores)
+              is also held against mcm_ref in float64 on the same inputs
+              at batch 128 and on the off-path shapes: max abs error <=
+              1e-5 * max|ref| (F64_TOL), printed beside fp32 mcm_ref's own
+              error against float64. Each line has the stages' summed
+              device times and the kernel's ratios to cuDNN (`vs_cudnn`)
+              and to its bound (`vs_bound`; fp32 at the 3xTF32 rate).
    kernel_nets -- the kernel's net axis (mcm_scale_forward_nets): the
               eight stages for the sweep's 8 nets at batch 128, fp32 and
               bf16, stage 0's input shared, through torch.func.vmap of
               fused_mcm (one launch per output scale for all nets),
               against mcm_ref on each net's slice at the kernel phase's
               tolerances; in fp32 every net's outputs must equal a
-              single-net launch on its tensors bit for bit. Times: the
+              single-net launch on its tensors bit for bit, and be within
+              F64_TOL of mcm_ref in float64 on each net's slice. Times: the
               vmapped call (`ms`, `device_ms`), mcm_ref net after net
               (`plain_*`) and mcm_ref under the same vmap (`library_*`,
               cuDNN's grouped convs), beside the bound of 8 nets' work.
@@ -108,7 +115,8 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               img/s over training alone and over training, evaluation and
               writes.
 
-Then one {"kernels": [...]} line, the kernel and its net axis (with the
+Then one {"kernels": [...]} line, the kernel (bf16), its fp32 branch
+(launches on the fp32 training main path) and its net axis (with the
 training main paths' launches in `train_launches`, `sweep_launches` and
 the CLI path's in `train_cli_launches`, `train_cli_sweep_launches`), and
 last the device record. Any failed
@@ -129,6 +137,9 @@ T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 TOL = {"fp32": 1e-4, "bf16": 2e-2}  # max abs error / max|ref|
+# The fp32 kernel (3xTF32) against mcm_ref in float64 on the same inputs:
+# fp32's own error is ~4e-7 of max|ref|, plain TF32's ~3e-4.
+F64_TOL = 1e-5
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 CHECKPOINT = os.path.join(HERE, "results", "nets", "hybrid-ac", "0004.npy")
 BATCH = 1024  # the serving batch, also the kernel check's batch
@@ -182,6 +193,31 @@ def rel_err(outs, refs):
     err = max(float((o.float() - r.float()).abs().max())
               for o, r in zip(outs, refs))
     return err / max(float(r.float().abs().max()) for r in refs)
+
+
+def f64_errs(out, xs, whs, wvs, bs):
+    """(max abs error, max|ref|) of the fp32 outputs `out` and of fp32
+    mcm_ref on the same inputs, against mcm_ref in float64: ((err, plain
+    err), scale). Call with the fp32 compute policy."""
+    from mpnn_tpu_torch.ops.kernels import mcm_ref
+    ref = mcm_ref([x.double() for x in xs], [w.double() for w in whs],
+                  [w.double() for w in wvs], [b.double() for b in bs])
+    plain = mcm_ref(xs, whs, wvs, bs)
+
+    def err(outs):
+        return max(float((o.double() - r).abs().max())
+                   for o, r in zip(outs, ref))
+    return (err(out), err(plain)), max(float(r.abs().max()) for r in ref)
+
+
+def check_f64(label, out, xs, whs, wvs, bs):
+    """The fp32 kernel's outputs within F64_TOL of float64 mcm_ref; returns
+    the kernel's and fp32 mcm_ref's errors over max|ref|."""
+    (err, plain), scale = f64_errs(out, xs, whs, wvs, bs)
+    check(err <= F64_TOL * scale, "%s fp32: max abs err %g against float64 "
+          "> %g * max|ref| %g" % (label, err, F64_TOL, scale))
+    return {"rel_err_vs_f64": err / scale,
+            "plain_rel_err_vs_f64": plain / scale}
 
 
 def grad_phase(device):
@@ -245,11 +281,11 @@ def kernel_phase(device):
             config.set_compute_dtype(torch.bfloat16)
         return rel_err(out, ref)
 
-    # Shapes off the flagship's path, checked only: widths that are not a
-    # multiple of the fp32 kernel's 4-pixel step (6, 3) with an odd batch;
-    # output widths that are not a multiple of the bf16 kernel's 8-wide
-    # mma tiles (12, 20) or wider than one 128-channel block (160); input
-    # channel counts read one value at a time (4, 3) or as vectors (8, 24).
+    # Shapes off the flagship's path, checked only: small ragged widths
+    # (6, 3) with an odd batch, so blocks run past the last pixel; output
+    # widths that are not a multiple of the kernels' 8-wide mma tiles (12,
+    # 20) or wider than one 128-channel block (160); input channel counts
+    # read one value at a time (3) or as 16-byte vectors (4, 8, 24).
     odd = [("ragged 12/6/3 stage", [[8, 8, 8]], 7, 12, 8),
            ("c_out 12, c_in 4", [[12, 12]], 5, 8, 4),
            ("c_out 160, c_in 24", [[160, 160]], 3, 8, 24),
@@ -266,13 +302,18 @@ def kernel_phase(device):
     runs = ([(dt, BATCH, i, st) for dt in DTYPES for i, st in stages]
             + [(dt, TRAIN_BATCH, i, st) for dt in DTYPES for i, st in train]
             + [("bf16", ROUTED_BATCH, i, st) for i, st in deep])
-    rows = []
+    rows, off_path = [], []
     for dt, torch_dt in DTYPES.items():
         config.set_compute_dtype(torch_dt)
         try:
             for label, (xs, whs, wvs, bs, _) in odd:
-                compare(label, [x.to(torch_dt) for x in xs], whs, wvs, bs,
-                        dt)
+                xin = [x.to(torch_dt) for x in xs]
+                out, err, scale = compare(label, xin, whs, wvs, bs, dt)
+                rec = {"shape": label, "dtype": dt,
+                       "max_abs_err": err, "max_abs_ref": scale}
+                if dt == "fp32":
+                    rec.update(check_f64(label, out, xin, whs, wvs, bs))
+                off_path.append(rec)
             for _, B, i, (xs, whs, wvs, bs, n_ops) in [
                     r for r in runs if r[0] == dt]:
                 xin = [x.to(torch_dt) for x in xs]
@@ -287,24 +328,47 @@ def kernel_phase(device):
                 if dt == "bf16":
                     row["rel_err_vs_fp32_ref"] = fp32_ref_err(out, xin, whs,
                                                               wvs, bs)
+                elif B != BATCH:  # float64 kept off batch 1024
+                    row.update(check_f64("stage %d batch %d" % (i, B), out,
+                                         xin, whs, wvs, bs))
                 # Timed on weights already in the compute dtype, so the
                 # times hold compute only (the casts are then no-ops).
                 row.update(stage_times(xin, whs, wvs, bs))
                 row["bound_ms"], row["bound_by"] = bound(n_bytes, flops, dt)
+                row["vs_cudnn"] = (row["device_ms"]
+                                   / row["cudnn_conv_sequence_device_ms"])
+                row["vs_bound"] = row["device_ms"] / row["bound_ms"]
                 rows.append(row)
         finally:
             config.set_compute_dtype(None)
     for dt, B in (("fp32", BATCH), ("bf16", BATCH), ("fp32", TRAIN_BATCH),
                   ("bf16", TRAIN_BATCH), ("bf16", ROUTED_BATCH)):
-        phase("kernel", dtype=dt, batch=B, stages=[
+        sel = [r for r in rows if r["dtype"] == dt and r["batch"] == B]
+        phase("kernel", dtype=dt, batch=B, totals=stage_totals(sel), stages=[
             {k: r[k] for k in ("stage", "shape", "c_out", "max_abs_err",
-                               "rel_err_vs_fp32_ref", "ms", "plain_ms",
+                               "rel_err_vs_fp32_ref", "rel_err_vs_f64",
+                               "plain_rel_err_vs_f64", "ms", "plain_ms",
                                "cudnn_conv_sequence_ms", "device_ms",
                                "plain_device_ms",
                                "cudnn_conv_sequence_device_ms", "bound_ms",
-                               "bound_by") if k in r}
-            for r in rows if r["dtype"] == dt and r["batch"] == B])
+                               "bound_by", "vs_cudnn", "vs_bound") if k in r}
+            for r in sel])
+    phase("kernel_off_path", shapes=off_path)
     return rows
+
+
+def stage_totals(rows, library="cudnn_conv_sequence_"):
+    """The stages' summed device times (kernel, mcm_ref, the library call),
+    their bound, and the kernel's ratios to the library and the bound."""
+    from mpnn_tpu_torch.kernel_bench import bound
+    dt = rows[0]["dtype"]
+    t = {k: sum(r[k] for r in rows)
+         for k in ("device_ms", "plain_device_ms", library + "device_ms")}
+    t["bound_ms"], t["bound_by"] = bound(sum(r["bytes"] for r in rows),
+                                         sum(r["flops"] for r in rows), dt)
+    t["vs_library"] = t["device_ms"] / t[library + "device_ms"]
+    t["vs_bound"] = t["device_ms"] / t["bound_ms"]
+    return t
 
 
 def kernel_nets_phase(device):
@@ -337,6 +401,7 @@ def kernel_nets_phase(device):
                       "expected one net-axis launch per scale (%d)"
                       % (i, dt, fused_mcm.launches - n0, len(whs)))
                 err = scale = single_err = 0.0
+                err64 = plain64 = scale64 = 0.0
                 bit_equal = True
                 for n in range(N_NETS):
                     xi = xin if shared else [x[n] for x in xin]
@@ -358,12 +423,20 @@ def kernel_nets_phase(device):
                     single_err = max([single_err] + [
                         float((s_.float() - r.float()).abs().max())
                         for s_, r in zip(single, ref)])
+                    if dt == "fp32":
+                        (e64, p64), s64 = f64_errs([o[n] for o in out],
+                                                   *args)
+                        err64, plain64 = max(err64, e64), max(plain64, p64)
+                        scale64 = max(scale64, s64)
                 check(err <= TOL[dt] * scale, "kernel_nets stage %d %s: max "
                       "abs err %g > %g * max|ref| %g"
                       % (i, dt, err, TOL[dt], scale))
                 check(bit_equal or dt != "fp32", "kernel_nets stage %d fp32: "
                       "a net's outputs differ from its single-net launch"
                       % i)
+                check(err64 <= F64_TOL * scale64, "kernel_nets stage %d fp32: "
+                      "max abs err %g against float64 > %g * max|ref| %g"
+                      % (i, err64, F64_TOL, scale64))
                 n_bytes, flops = stage_cost(xin, whs, wvs, bs, n_ops,
                                             TRAIN_BATCH, dt, N_NETS)
                 row = {"stage": i, "dtype": dt, "nets": N_NETS,
@@ -373,13 +446,20 @@ def kernel_nets_phase(device):
                        "single_net_max_abs_err": single_err,
                        "bit_equal_to_single_net": bit_equal,
                        "bytes": n_bytes, "flops": flops}
+                if dt == "fp32":
+                    row["rel_err_vs_f64"] = err64 / scale64
+                    row["plain_rel_err_vs_f64"] = plain64 / scale64
                 row.update(stage_times(xin, whs, wvs, bs, sweep_stage_fns))
                 row["bound_ms"], row["bound_by"] = bound(n_bytes, flops, dt)
+                row["vs_library"] = row["device_ms"] / row["library_device_ms"]
+                row["vs_bound"] = row["device_ms"] / row["bound_ms"]
                 rows.append(row)
         finally:
             config.set_compute_dtype(None)
     for dt in DTYPES:
+        sel = [r for r in rows if r["dtype"] == dt]
         phase("kernel_nets", dtype=dt, nets=N_NETS, batch=TRAIN_BATCH,
+              totals=stage_totals(sel, "library_"),
               stages=[{k: v for k, v in r.items()
                        if k not in ("dtype", "nets", "batch", "bytes",
                                     "flops", "max_abs_ref")}
@@ -1258,6 +1338,9 @@ def main():
     bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
     bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
                                sum(r["flops"] for r in bf), "bf16")
+    f32 = [r for r in rows if r["dtype"] == "fp32" and r["batch"] == BATCH]
+    f32_bound_ms, f32_bound_by = bound(sum(r["bytes"] for r in f32),
+                                       sum(r["flops"] for r in f32), "fp32")
     nb = [r for r in net_rows if r["dtype"] == "bf16"]
     nb_bound_ms, nb_bound_by = bound(sum(r["bytes"] for r in nb),
                                      sum(r["flops"] for r in nb), "bf16")
@@ -1294,9 +1377,44 @@ def main():
         "design": "bf16: mma.sync m16n8k16 implicit GEMM, BM=64 pixels x "
                   "BN=16-128 channels a block, one tap x 16 channels a K "
                   "step, three K steps staged in shared memory per "
-                  "barrier, one launch per output scale; fp32: FP32-pipe "
-                  "4x4 register tile",
+                  "barrier, one launch per output scale; fp32: the entry "
+                  "'fused_mcm, fp32'",
         "stages": rows,
+    }, {
+        "name": "fused_mcm, fp32",
+        "route": "cuda",
+        "source": "mpnn_tpu_torch/ops/csrc/fused_mcm.cu",
+        "replaces": "mpnn_tpu/ops/kernels.py:125",
+        "entry": "mcm_scale_forward and mcm_scale_forward_nets, dtype 0 "
+                 "(mcm_scale_tf32)",
+        "launches": train["fp32"]["fused_mcm_launches"],
+        "launches_on": "the fp32 training main path (train_fp32), counted "
+                       "from 0",
+        "sweep_launches": sweep["fp32"]["fused_mcm_net_launches"],
+        "dtype": "fp32",
+        "work": "the eight flagship stages, batch %d, one call each" % BATCH,
+        "max_abs_err": max(r["max_abs_err"] for r in f32),
+        "max_rel_err_vs_f64": max(r["rel_err_vs_f64"] for r in rows
+                                  if "rel_err_vs_f64" in r),
+        "ms": sum(r["ms"] for r in f32),
+        "plain_ms": sum(r["plain_ms"] for r in f32),
+        "timing": "as the bf16 entry's",
+        "device_ms": sum(r["device_ms"] for r in f32),
+        "plain_device_ms": sum(r["plain_device_ms"] for r in f32),
+        "bound_ms": f32_bound_ms,
+        "bound_by": f32_bound_by.split()[0],
+        "bound_rate": "3xTF32: 3 x FLOPs / 495 TFLOP/s",
+        "library_ms": sum(r["cudnn_conv_sequence_ms"] for r in f32),
+        "library_device_ms": sum(r["cudnn_conv_sequence_device_ms"]
+                                 for r in f32),
+        "library_call": "the cuDNN conv2d sequence mcm_ref makes, TF32 off",
+        "design": "3xTF32 mma.sync m16n8k8 implicit GEMM (hi/lo split, "
+                  "three products, fp32 totals every 8 mma steps); a "
+                  "block of 128 pixels (64 for 128 channels) x 16-128 "
+                  "channels; chunks of 8 channels x 9 taps, each chunk's "
+                  "halo patch and B tiles through a 3-slot cp.async ring, "
+                  "the patch split once and read by all 9 taps; one "
+                  "launch per output scale",
     }, {
         "name": "fused_mcm, net axis",
         "route": "cuda",

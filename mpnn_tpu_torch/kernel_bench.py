@@ -14,10 +14,12 @@ seeded numpy generator), `stage_times` gives, for the kernel (`ms`),
 
 and `stage_cost` and `bound` give the stage's bound: the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
-its operations over the type's peak rate. `sweep_stage_inputs` and
-`sweep_stage_fns` give the same for a sweep's stage: every net at once
-through fused_mcm's net axis, against `mcm_ref` under the same
-`torch.func.vmap` (cuDNN's grouped convs). The timers need a CUDA GPU."""
+its operations over the type's peak rate on the tensor cores (fp32 as
+3xTF32: three TF32 products per product at 495 TFLOP/s).
+`sweep_stage_inputs` and `sweep_stage_fns` give the same for a sweep's
+stage: every net at once through fused_mcm's net axis, against `mcm_ref`
+under the same `torch.func.vmap` (cuDNN's grouped convs). The timers need
+a CUDA GPU."""
 
 import statistics
 import subprocess
@@ -25,9 +27,15 @@ import subprocess
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s per type.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the FLOP/s of
+# the tensor-core instructions that carry each type's products. fp32 runs
+# as 3xTF32 (fused_mcm.cu): three TF32 products per product, each at 495
+# TFLOP/s, so fp32 work costs PASSES["fp32"] = 3 times its FLOPs at that
+# rate. (Outside the tensor cores fp32 runs at 67 TFLOP/s; bounds before
+# the 3xTF32 kernel used that rate.)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"fp32": 495e12, "bf16": 989e12}
+PASSES = {"fp32": 3, "bf16": 1}
 N_TIMED = 25
 GRAPH_CALLS = 10  # calls captured in one timed CUDA graph
 GRAPH_REPLAYS = 20
@@ -140,11 +148,13 @@ def stage_cost(xs, whs, wvs, bs, n_ops, B, dt, n_nets=1):
 
 
 def bound(n_bytes, flops, dt):
-    """(bound_ms, bound_by): the least time the card could take."""
+    """(bound_ms, bound_by): the least time the card could take, bound by
+    "bytes" or by "operations" ("operations (3xTF32)" for fp32)."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dt] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    t_ops = PASSES[dt] * flops / PEAK_FLOPS[dt] * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes"
+    return t_ops, "operations (3xTF32)" if dt == "fp32" else "operations"
 
 
 def conv_sequence(xs, whs, wvs, pooled):
