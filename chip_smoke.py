@@ -70,12 +70,19 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               forward (the stages' L sum to 20; the backward launches
               none); the same comparison for a float64 stage rounded to
               fp32 is printed as the yardstick of rounding alone.
-              train_fp32 and train_bf16 then each take 3 timed
+              train_bf16_vs_fp32 takes one step four ways from the same
+              params and batch (kernel and mcm_ref, bf16 and fp32): the
+              kernel path's bf16 gradients may be at most 2x as far from
+              its fp32 gradients, over the whole tree, as mcm_ref's bf16
+              gradients are from mcm_ref's fp32 ones (every distance is
+              printed). train_fp32 and train_bf16 then each take 3 timed
               windows of 20 steps (img/s, median and every window; the
               loss finite at each window's end); the kernel's count is set
-              to 0 before each and must read 20 per step after it. bf16
-              also prints the kernel path's first-step loss against the
-              mcm_ref path's (not a gate).
+              to 0 before each and must read 20 per step after it; then 5
+              steps under torch.profiler give the device's time,
+              operations and idle share per step. bf16 also prints the
+              kernel path's first-step loss against the mcm_ref path's
+              (not a gate).
               The kernel phase holds and times the eight stages at the
               training batch 128 too, fp32 and bf16.
 7. sweep   -- the vmapped k_cpt sweep (make_sweep_train_loop) of 8
@@ -90,7 +97,34 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               windows of 20 steps each (aggregate img/s of all nets,
               median and every window, beside the single-net rate of the
               train phase of the same run), the counts from 0 and 20
-              net-axis launches a step.
+              net-axis launches a step; sweep_train_bf16 also holds one
+              sweep step to train_bf16_vs_fp32's gate.
+7b. trees  -- the 47-stage actor tree (`ac_tree(k_cpt=k_cpts[4])`, fresh
+              from seed 0, batch 128): tree_train_fp32_vs_plain holds one
+              fp32 step at train_fp32_vs_plain's gates with 96 launches
+              per forward; tree_train_fp32 / tree_train_bf16 take 3
+              windows of 5 steps (img/s beside the chain's of this run; 2
+              profiled steps); tree_sweep_train_fp32 holds one step of
+              synth-ac-tree's 8 trees at the sweep gates (96 net-axis
+              launches per sweep forward) and, with tree_sweep_train_bf16,
+              times 3 windows of 3 steps (aggregate img/s).
+7c. tree serving -- the trained adaptive tree
+              (results/nets/hybrid-ac-tree-dynkcpt/net.npy.cz, its
+              committed compact form: bfloat16 weights) serves the test
+              split of hybrid.npz, rebuilt at full size (50,000 / 2,000) by
+              the port's prep, at batch 1024 and each of the 8 k_cpts,
+              dense and at capacities calibrated on the train split: fp32
+              through the kernel against mcm_ref (probs within 1e-4, the
+              same exits, ops and forced counts outside router near-ties
+              on the example's path), then bf16 timed (5 windows of 2
+              passes over the padded test split, dense and routed in
+              turns; the kernel's count from 0), with the bf16 exits that
+              differ from fp32's. tree_desc_vs_jax_files prints, per
+              k_cpt, net_desc of that tree through the kernel (fp32, eval
+              batch 1024) beside the descriptor files its training wrote
+              (accuracy, moc, the largest difference of a scalar stat;
+              not a gate), and, where the fp32 net.npy is in the
+              checkout, net_desc of that beside both.
 8. train_cli -- the training CLI's path (`train.train_experiment`, as
               `python -m mpnn_tpu_torch.train` runs it) in a temporary
               directory, fp32, batch 128, t_log 20, on the small synthetic
@@ -111,15 +145,26 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               way for every net, with 20 launches per sweep forward, and
               net 4's final descriptor from the sweep's vmapped
               evaluation through the kernel against net_desc of its
-              checkpoint through mcm_ref. Prints each run's seconds and
+              checkpoint through mcm_ref. synth-ac-tree net 4 and
+              synth-ac-tree --vmap-sweep run to 20 under the same checks
+              (96 launches per forward). Prints each run's seconds and
               img/s over training alone and over training, evaluation and
               writes.
+9. adaptive_cli -- `python -m mpnn_tpu_torch.train_adaptive` in processes
+              of its own (ADAPTIVE_RUNS: synth-ac-tree-dynkcpt to 20 with
+              t_log 10 and --stats-log, resumed to 30, and
+              synth-cr-dynkcpt to 20): the files, net.npy read back bit
+              for bit with its step, the resume's start, each process's
+              launches (its last line) against per_forward x (steps +
+              evaluations x eval batches), and the tree's descriptor files
+              against net_desc through mcm_ref (1e-4 x max(1, |stat|)).
 
 Then one {"kernels": [...]} line, the kernel (bf16), its fp32 branch
 (launches on the fp32 training main path) and its net axis (with the
 training main paths' launches in `train_launches`, `sweep_launches` and
-the CLI path's in `train_cli_launches`, `train_cli_sweep_launches`), and
-last the device record. Any failed
+the CLI path's in `train_cli_launches`, `train_cli_sweep_launches`; the
+tree paths' in `tree_launches` and `tree_sweep_launches`), and last the
+device record. Any failed
 phase raises and the script exits non-zero; it also exits non-zero, with no
 result, where CUDA is absent or the port's package is not beside it."""
 
@@ -162,19 +207,34 @@ DISCRETE_TOL = 1e-4
 CLI_T_LOG = 20
 # (experiment, net index, n_iter, resume) of the train_cli phase.
 CLI_RUNS = [("synth-ac", 4, 40, False), ("synth-ac", 4, 60, True),
-            ("synth-sr", 7, 20, False), ("synth-cr", 4, 20, False)]
+            ("synth-sr", 7, 20, False), ("synth-cr", 4, 20, False),
+            ("synth-ac-tree", 4, 20, False)]
 DESC_TOL = 1e-4  # kernel vs mcm_ref net_desc, per scalar stat
 N_SERVE = 20  # batches per timed serving window
 N_WINDOWS = 5  # timed serving windows per capacity
 N_TRAIN_WINDOWS = 3  # timed windows of N_TRAIN_STEPS single-net steps
 N_NETS = 8  # nets of the flagship sweep (experiments.k_cpts)
 N_SWEEP_WINDOWS = 5  # timed windows of N_TRAIN_STEPS sweep steps
-# (n_iter, resume) of the train_cli phase's synth-ac --vmap-sweep runs, and
-# the member whose final descriptor is held against mcm_ref.
-SWEEP_CLI_RUNS = [(40, False), (60, True)]
+# (experiment, n_iter, resume) of the train_cli phase's --vmap-sweep runs,
+# and the synth-ac member whose final descriptor is held against mcm_ref.
+SWEEP_CLI_RUNS = [("synth-ac", 40, False), ("synth-ac", 60, True),
+                  ("synth-ac-tree", 20, False)]
 SWEEP_DESC_NET = 4
 MARGIN_TIE = 1e-3  # router top-2 logit margin below which exits may differ
 MARGIN_BF16 = 1e-2  # the margin reported for bf16 kernel vs plain exits
+# fused_mcm launches per forward of the flagship chain (the eight stages'
+# scales) and of the 47-stage tree (fans 1x4 + 2x4 + 4x3, 8 tails x 9).
+PER_FORWARD = {"chain": 20, "tree": 96}
+# Timed windows x steps of the training phases, per architecture: the tree's
+# host-bound step is ~5x the chain's.
+TRAIN_WINDOWS = {"chain": (N_TRAIN_WINDOWS, N_TRAIN_STEPS), "tree": (3, 5)}
+SWEEP_WINDOWS = {"chain": (N_SWEEP_WINDOWS, N_TRAIN_STEPS), "tree": (3, 3)}
+# Steps traced by torch.profiler after the windows: reading a trace back
+# takes ~0.1 ms an event, and a tree step has ~20,000 device operations.
+PROFILE_STEPS = {"chain": 5, "tree": 2}
+# bf16 training against fp32 (one step, gradients over the whole tree):
+# the kernel path's distance may be at most this multiple of mcm_ref's.
+BF16_VS_FP32_FACTOR = 2.0
 
 
 def phase(name, ok=True, **fields):
@@ -467,57 +527,82 @@ def kernel_nets_phase(device):
     return rows
 
 
-def chain_margins(net, params, state, x0):
-    """Top-2 router logit margin at every switch of the chain, per example,
-    from a dense pass (every stage on the whole batch)."""
-    from mpnn_tpu_torch.models.infer import chain_stages
-    from mpnn_tpu_torch.models.net import Ctx
-    ctx = Ctx(train=False, k_cpt=net.hypers.k_cpt)
-    margins = []
-    act, p, s = x0, params, state
-    with torch.inference_mode():
-        for node, leaf, nxt in chain_stages(net):
-            o, _ = net._apply_one(node, p, s, act, None, ctx)
-            act = o["x"]
-            if leaf is not None:
-                top2 = torch.topk(o["router_x"], 2, dim=1).values
-                margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
-            if nxt is not None:
-                i = node.sinks.index(nxt)
-                p, s = p["sinks"][i], s["sinks"][i]
-    return np.stack(margins, axis=1)  # (B, n_switches)
-
-
-def serve(net, params, state, x0, cap, reference=False):
+def serve(net, params, state, x0, cap, reference=False, k_cpt=None):
     from mpnn_tpu_torch.models.infer import make_routed_infer_fn
     from mpnn_tpu_torch.ops import kernels
     infer = make_routed_infer_fn(net, x0.shape[0], capacities=cap)
     if not reference:
-        out = infer(params, state, x0)
+        out = infer(params, state, x0, k_cpt)
     else:
-        def plain(xs, whs, wvs, bs, supp):
-            return kernels.mcm_ref(xs, whs, wvs, bs)
-        with mock.patch.object(kernels, "fused_mcm", plain):
-            out = infer(params, state, x0)
+        with mock.patch.object(kernels, "fused_mcm", _plain_stage):
+            out = infer(params, state, x0, k_cpt)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def compare_fp32(label, net, params, state, x0, cap, margins):
-    """Kernel path against the mcm_ref path, both on the GPU in fp32."""
+def tree_paths(net):
+    """For each leaf (preorder), the preorder indices of the switches on
+    its path from the root."""
+    pos = {id(sw): i for i, sw in enumerate(net.switches)}
+    paths = []
+
+    def walk(node, path):
+        if not node.sinks:
+            paths.append(path)
+            return
+        if len(node.sinks) > 1:
+            path = path + [pos[id(node)]]
+        for snk in node.sinks:
+            walk(snk, path)
+
+    walk(net.root, [])
+    return paths
+
+
+def router_margins(net, params, state, xs, k_cpt):
+    """Top-2 router logit margin at every switch, per example, from a dense
+    eval pass over the batches xs at price k_cpt: (rows, n_switches)."""
+    from mpnn_tpu_torch.models.net import Ctx
+    out = []
+    for x0 in xs:
+        ctx = Ctx(train=False, k_cpt=torch.tensor(k_cpt, device=x0.device))
+        with torch.inference_mode():
+            recs, _ = net.forward(params, state, x0, None, ctx)
+            top2 = [torch.topk(recs[sw].router_x, 2, dim=1).values
+                    for sw in net.switches]
+            out.append(torch.stack([m[:, 0] - m[:, 1] for m in top2], 1)
+                       .cpu().numpy())
+    return np.concatenate(out)
+
+
+def serve_split(net, params, state, xs, cap, k_cpt, reference=False):
+    """Routed inference over the batches `xs`, outputs concatenated (the
+    forced counts summed)."""
+    outs = [serve(net, params, state, x, cap, reference, k_cpt) for x in xs]
+    cat = {k: np.concatenate([o[k] for o in outs])
+           for k in ("probs", "exit_idx", "ops")}
+    cat["forced"] = sum(o["forced"] for o in outs)
+    return cat
+
+
+def compare_fp32(label, net, params, state, xs, n, cap, k_cpt, margins):
+    """The kernel path against the mcm_ref path, both on the GPU in fp32,
+    over the first n rows of the batches xs: probs within 1e-4 where the
+    exits agree, and the same exits, ops and forced counts outside router
+    near-ties (a top-2 margin below MARGIN_TIE at any switch on the
+    example's path)."""
     from mpnn_tpu_torch.ops.kernels import fused_mcm
     launches0 = fused_mcm.launches
-    k = serve(net, params, state, x0, cap)
+    k = serve_split(net, params, state, xs, cap, k_cpt)
     check(fused_mcm.launches > launches0,
           "%s: kernel path did not launch" % label)
-    r = serve(net, params, state, x0, cap, reference=True)
-    n_sw = margins.shape[1]
-    # An example's deciding routers: every switch up to the one it left by.
-    depth = np.minimum(r["exit_idx"], n_sw - 1)
-    visited = np.arange(n_sw)[None, :] <= depth[:, None]
-    near_tie = (visited & (margins < MARGIN_TIE)).any(axis=1)
-    same_exit = k["exit_idx"] == r["exit_idx"]
-    prob_err = float(np.abs(k["probs"] - r["probs"])[same_exit].max())
-    mismatch = ~(same_exit & (k["ops"] == r["ops"]))
+    r = serve_split(net, params, state, xs, cap, k_cpt, reference=True)
+    paths = tree_paths(net)
+    near_tie = np.array([(margins[e, paths[r["exit_idx"][e]]]
+                          < MARGIN_TIE).any() for e in range(n)])
+    same_exit = k["exit_idx"][:n] == r["exit_idx"][:n]
+    prob_err = float(np.abs(k["probs"][:n] - r["probs"][:n])[same_exit]
+                     .max())
+    mismatch = ~(same_exit & (k["ops"][:n] == r["ops"][:n]))
     check(not (mismatch & ~near_tie).any(),
           "%s: exit_idx/ops differ on %d examples with router margin >= %g"
           % (label, int((mismatch & ~near_tie).sum()), MARGIN_TIE))
@@ -526,12 +611,14 @@ def compare_fp32(label, net, params, state, x0, cap, margins):
     forced_diff = int(np.abs(k["forced"] - r["forced"]).sum())
     check(forced_diff <= int(near_tie.sum()),
           "%s: forced differs by %d" % (label, forced_diff))
-    return {"capacity": cap, "max_prob_err": prob_err,
-            "near_tie_examples": int(near_tie.sum()),
-            "exit_mismatches": int(mismatch.sum()),
-            "forced": k["forced"].tolist(), "forced_ref": r["forced"].tolist(),
-            "exit_hist": np.bincount(k["exit_idx"],
-                                     minlength=len(list(net.leaves))).tolist()}
+    return k, {"capacity": cap, "max_prob_err": prob_err,
+               "near_tie_examples": int(near_tie.sum()),
+               "exit_mismatches": int(mismatch.sum()),
+               "forced": k["forced"].tolist(),
+               "forced_ref": r["forced"].tolist(),
+               "mean_ops": float(k["ops"][:n].mean()),
+               "exit_hist": np.bincount(k["exit_idx"][:n], minlength=len(
+                   list(net.leaves))).tolist()}
 
 
 def serve_phase(device):
@@ -552,9 +639,10 @@ def serve_phase(device):
 
     config.set_compute_dtype(None)
     caps = calibrate_capacities(net, params, state, x_cal)
-    margins = chain_margins(net, params, state, x0)
-    fp32 = [compare_fp32("fp32 capacity %s" % cap, net, params, state, x0,
-                         cap, margins)
+    k_cpt = net.hypers.k_cpt
+    margins = router_margins(net, params, state, [x0], k_cpt)
+    fp32 = [compare_fp32("fp32 capacity %s" % cap, net, params, state, [x0],
+                         B, cap, k_cpt, margins)[1]
             for cap in (1.0, caps)]
     phase("serve_fp32_vs_plain", checkpoint=os.path.relpath(CHECKPOINT, HERE),
           batch=B, calibrated_capacities=caps, results=fp32)
@@ -618,13 +706,15 @@ def bf16_drift(net, params, state, x0):
     router (any switch up to the first where the two paths part) whose
     top-2 margin on the kernel path is below MARGIN_BF16. Printed, not a
     gate: the two paths round at different places."""
-    margins = chain_margins(net, params, state, x0)
+    margins = router_margins(net, params, state, [x0], net.hypers.k_cpt)
     k = serve(net, params, state, x0, 1.0)
     r = serve(net, params, state, x0, 1.0, reference=True)
-    n_sw = margins.shape[1]
-    depth = np.minimum(np.minimum(k["exit_idx"], r["exit_idx"]), n_sw - 1)
-    visited = np.arange(n_sw)[None, :] <= depth[:, None]
-    near_tie = (visited & (margins < MARGIN_BF16)).any(axis=1)
+    paths = tree_paths(net)
+    # The switches both paths visit: up to the one where they part.
+    near_tie = np.array([
+        (margins[e, sorted(set(paths[a]) & set(paths[b]))] < MARGIN_BF16)
+        .any() for e, (a, b) in enumerate(zip(k["exit_idx"],
+                                              r["exit_idx"]))])
     differ = k["exit_idx"] != r["exit_idx"]
     same = ~differ
     return {"capacity": 1.0, "examples": int(len(differ)),
@@ -636,6 +726,190 @@ def bf16_drift(net, params, state, x0):
                 k["probs"].astype(np.float32)
                 - r["probs"].astype(np.float32))[same].max())
             if same.any() else None}
+
+
+TREE_DIR = os.path.join(HERE, "results", "nets", "hybrid-ac-tree-dynkcpt")
+# The trained adaptive tree in its committed compact form (bfloat16
+# weights, 16 MB). The 40 MB fp32 net.npy beside it is listed in
+# .gitignore, to keep a checkout small, so a checkout that leaves out
+# ignored files lacks it; where it is present, tree_desc_phase also
+# evaluates it, to measure what the rounding of the weights changes.
+TREE_CHECKPOINT = os.path.join(TREE_DIR, "net.npy.cz")
+TREE_FP32 = os.path.join(TREE_DIR, "net.npy")
+N_TREE_PASSES = 2  # passes over the test split per timed serving window
+N_TREE_WINDOWS = 5  # timed serving windows per capacity and k_cpt
+EVAL_BATCH = 1024  # the batch of the trained tree's full-split evaluation
+
+
+def tree_serve_phase(device):
+    """Routed serving of the trained 47-stage adaptive tree on the test
+    split of the rebuilt hybrid.npz, at every k_cpt, dense and at
+    capacities calibrated on the train split: fp32 through the kernel
+    against mcm_ref (compare_fp32), then bf16 (the main path, the
+    kernel's count from 0) timed, with its exits against fp32's."""
+    from mpnn_tpu_torch.data.prep import synthetic_archive
+    from mpnn_tpu_torch.experiments import k_cpts
+    from mpnn_tpu_torch.models.infer import (calibrate_capacities,
+                                             make_routed_infer_fn)
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    from mpnn_tpu_torch.utils.serdes import read_net
+
+    t = time.perf_counter()
+    net, params, state, extra = read_net(TREE_CHECKPOINT, device)
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    data = synthetic_archive("hybrid.npz")
+    prep_s = time.perf_counter() - t
+    check(len(list(net.layers)) == 95 and len(list(net.switches)) == 39,
+          "tree_serve: the checkpoint is not the 47-stage tree")
+    B, n = BATCH, len(data["x0_ts"])
+    n_pad = -(-n // B) * B
+    x_ts = np.resize(data["x0_ts"], (n_pad,) + data["x0_ts"].shape[1:])
+    xs = [torch.as_tensor(x_ts[i:i + B], device=device)
+          for i in range(0, n_pad, B)]
+    x_cal = torch.as_tensor(data["x0_tr"][:B], device=device)
+    y_ts = np.argmax(data["y_ts"], axis=1)
+    config.set_compute_dtype(None)
+    per_k, fp32_out = [], {}
+    for k_cpt in k_cpts:
+        margins = router_margins(net, params, state, xs, k_cpt)
+        caps = calibrate_capacities(net, params, state, x_cal, k_cpt=k_cpt)
+        rec = {"k_cpt": k_cpt, "calibrated_capacities": caps}
+        for mode, cap in (("dense", 1.0), ("routed", caps)):
+            out, rec[mode] = compare_fp32(
+                "tree_serve k_cpt %g %s" % (k_cpt, mode), net, params, state,
+                xs, n, cap, k_cpt, margins)
+            rec[mode]["accuracy"] = float(np.mean(
+                np.argmax(out["probs"][:n], axis=1) == y_ts))
+            fp32_out[k_cpt, mode] = out["exit_idx"][:n]
+        per_k.append(rec)
+
+    config.set_compute_dtype(torch.bfloat16)
+    try:
+        # The main path: the kernel's count starts from 0 here and is read
+        # just after the last served batch.
+        fused_mcm.launches = 0
+        for rec in per_k:
+            k_cpt, infers = rec["k_cpt"], {}
+            for mode, cap in (("dense", 1.0),
+                              ("routed", rec["calibrated_capacities"])):
+                infer = make_routed_infer_fn(net, B, capacities=cap)
+                outs = [infer(params, state, x, k_cpt) for x in xs]
+                exits = torch.cat([o["exit_idx"] for o in outs])[:n]
+                ops = torch.cat([o["ops"] for o in outs])[:n].cpu().numpy()
+                probs = torch.cat([o["probs"] for o in outs])[:n].float()
+                check(bool(torch.isfinite(probs).all()) and (ops > 0).all(),
+                      "tree_serve bf16 k_cpt %g %s: bad probs or ops"
+                      % (k_cpt, mode))
+                n0 = fused_mcm.launches
+                infer(params, state, xs[0], k_cpt)
+                torch.cuda.synchronize()
+                per_batch = fused_mcm.launches - n0
+                infers[mode] = infer
+                rec[mode]["bf16"] = {
+                    "mean_ops": float(ops.mean()),
+                    "forced": int(sum(o["forced"].sum() for o in outs)),
+                    "exit_mismatches_vs_fp32": int(
+                        (exits.cpu().numpy() != fp32_out[k_cpt, mode])
+                        .sum()),
+                    "launches_per_batch": per_batch,
+                    "accuracy": float(np.mean(
+                        probs.argmax(1).cpu().numpy() == y_ts))}
+            # Timed windows of whole passes over the (padded) test split,
+            # dense and routed in turns, so both modes meet the same host.
+            rates = {mode: [] for mode in infers}
+            for _ in range(N_TREE_WINDOWS):
+                for mode, infer in infers.items():
+                    t = time.perf_counter()
+                    for _ in range(N_TREE_PASSES):
+                        for x in xs:
+                            infer(params, state, x, k_cpt)
+                    torch.cuda.synchronize()
+                    rates[mode].append(N_TREE_PASSES * n_pad
+                                       / (time.perf_counter() - t))
+            for mode, r in rates.items():
+                rec[mode]["bf16"].update(img_s=statistics.median(r),
+                                         window_values=r)
+        launches = fused_mcm.launches
+    finally:
+        config.set_compute_dtype(None)
+    check(launches > 0, "tree_serve: fused_mcm was not launched")
+    return {"checkpoint": os.path.relpath(TREE_CHECKPOINT, HERE),
+            "checkpoint_t": extra["t"], "read_s": read_s,
+            "dataset": "hybrid.npz rebuilt (50,000 / 2,000)",
+            "prep_s": prep_s, "batch": B, "test_examples": n,
+            "window_batches": N_TREE_PASSES * len(xs),
+            "windows": N_TREE_WINDOWS,
+            "per_k_cpt": per_k, "fused_mcm_launches": launches}, (
+        net, params, state, extra["t"], data)
+
+
+def tree_desc_phase(device, tree):
+    """net_desc of the trained tree at every k_cpt through the kernel, fp32,
+    on the rebuilt hybrid.npz, at the τ of its last training step, beside
+    the committed descriptor files of its training: accuracy, moc and the
+    largest difference of any scalar stat (printed, not gated). Where the
+    fp32 net.npy is present (TREE_FP32), it is evaluated the same way and
+    set beside both, which separates the compact archive's rounding from
+    the rest."""
+    from mpnn_tpu_torch.data.dataset import Dataset
+    from mpnn_tpu_torch.experiments import k_cpts, τ_ds
+    from mpnn_tpu_torch.models.steps import make_eval_split_fn
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.utils.desc import net_desc
+    from mpnn_tpu_torch.utils.serdes import read_net
+    net, params, state, n_iter, data = tree
+    config.set_compute_dtype(None)
+    ds = Dataset(data, device=device)
+    eval_split = make_eval_split_fn(net, EVAL_BATCH)
+    fp32 = (read_net(TREE_FP32, device)[1:3] if os.path.exists(TREE_FP32)
+            else None)
+
+    def desc_at(k_cpt, p, s):
+        return net_desc(net, ds, p, s, batch_size=EVAL_BATCH,
+                        tau=τ_ds(n_iter - 1), k_cpt=k_cpt,
+                        eval_split=eval_split)
+
+    def beside(ours, theirs):
+        """The largest difference of a scalar stat and where it is, or
+        (None, None) if the schemas differ."""
+        ours, theirs = _scalar_stats(ours), _scalar_stats(theirs)
+        if [p for p, _ in ours] != [p for p, _ in theirs]:
+            return None, None
+        return max((abs(a - b), p) for (p, a), (_, b) in zip(ours, theirs))
+
+    rows = []
+    t = time.perf_counter()
+    for i, k_cpt in enumerate(k_cpts):
+        desc = desc_at(k_cpt, params, state)
+        jax_desc = np.load(os.path.join(TREE_DIR, "%.4i-stats.npy" % i),
+                           allow_pickle=True)[()]
+        diff, at = beside(desc, jax_desc)
+        row = {"k_cpt": k_cpt, "same_schema": diff is not None,
+               "acc_ts": desc["stats_ts"]["acc"],
+               "acc_ts_files": jax_desc["stats_ts"]["acc"],
+               "acc_tr": desc["stats_tr"]["acc"],
+               "acc_tr_files": jax_desc["stats_tr"]["acc"],
+               "moc_ts": desc["stats_ts"]["moc"],
+               "moc_ts_files": jax_desc["stats_ts"]["moc"],
+               "max_abs_stat_diff": diff, "at": at}
+        if fp32 is not None:
+            full = desc_at(k_cpt, *fp32)
+            row["fp32_weights"] = {
+                "acc_ts": full["stats_ts"]["acc"],
+                "acc_tr": full["stats_tr"]["acc"],
+                "moc_ts": full["stats_ts"]["moc"],
+                "vs_compact": beside(desc, full),
+                "vs_files": beside(full, jax_desc)}
+        rows.append(row)
+    return {"eval_batch": EVAL_BATCH, "tau": τ_ds(n_iter - 1),
+            "seconds": time.perf_counter() - t,
+            "weights": "bfloat16-rounded (the compact archive)",
+            "fp32_weights": (os.path.relpath(TREE_FP32, HERE)
+                             if fp32 is not None else "absent"),
+            "max_acc_ts_diff": max(abs(r["acc_ts"] - r["acc_ts_files"])
+                                   for r in rows), "per_k_cpt": rows}
 
 
 def _leaves(tree, path=()):
@@ -747,21 +1021,23 @@ def train_once(net, params, state, vel, data, stage=None):
             "state": state, "launches": (n1 - n0, n2 - n1)}
 
 
-def train_vs_plain_phase(device):
-    """One fp32 step through the kernel against the same through mcm_ref."""
+def train_vs_plain_phase(device, arch="chain"):
+    """One fp32 step through the kernel against the same through mcm_ref,
+    of the flagship actor chain or (arch="tree") the actor tree."""
     from mpnn_tpu_torch import train_bench
-    from mpnn_tpu_torch.experiments import arch
     from mpnn_tpu_torch.ops import config
     config.set_compute_dtype(None)
-    net, params, state, vel = train_bench.build(0, device)
+    net, params, state, vel = train_bench.build(0, device, arch=arch)
     data = train_bench.train_data(net, device)
     k = train_once(net, params, state, vel, data)
     r = train_once(net, params, state, vel, data, _plain_stage)
     f64 = train_once(net, params, state, vel, data, _float64_stage)
-    per_fwd = sum(len(a) for a in arch)
-    check(k["launches"] == (per_fwd, per_fwd) and r["launches"] == (0, 0),
-          "train: kernel launches per forward %s, expected %d (plain path "
-          "%s)" % (k["launches"], per_fwd, r["launches"]))
+    per_fwd = mcm_launches_per_forward(net)
+    check(per_fwd == PER_FORWARD[arch] and k["launches"] == (per_fwd, per_fwd)
+          and r["launches"] == (0, 0),
+          "train %s: kernel launches per forward %s, expected %d (plain "
+          "path %s)" % (arch, k["launches"], PER_FORWARD[arch],
+                        r["launches"]))
     loss_err = abs(k["loss"] - r["loss"]) / abs(r["loss"])
     zero = zero_grad_paths(net)
     errs = {"gradient": tree_errs(k["grads"], r["grads"], zero),
@@ -783,24 +1059,29 @@ def train_vs_plain_phase(device):
                   "%g > %g (worst leaf %s)" % (name, key, errs[name][key],
                                                TRAIN_TOL[key],
                                                errs[name]["worst_leaf"]))
-    return {"batch": TRAIN_BATCH, "loss": k["loss"], "loss_plain": r["loss"],
+    return {"arch": arch, "batch": TRAIN_BATCH, "loss": k["loss"],
+            "loss_plain": r["loss"],
             "loss_rel_err": loss_err, "errors": errs, "tolerances": TRAIN_TOL,
             "float64_stage_vs_plain": baseline,
             "n_leaves": len(_leaves(k["grads"])),
             "launches_per_forward": per_fwd}
 
 
-def train_phase(device, precision):
-    """The training main path in one precision: a warm-up step and timed
-    windows of N_TRAIN_STEPS steps, the kernel's count from 0."""
+def train_phase(device, precision, arch="chain"):
+    """The training main path in one precision, of the flagship actor chain
+    or (arch="tree") the actor tree: a warm-up step and timed windows
+    (TRAIN_WINDOWS), the kernel's count from 0; then PROFILE_STEPS steps
+    under torch.profiler for the device's time, operations and idle share
+    per step."""
     from mpnn_tpu_torch import train_bench
-    from mpnn_tpu_torch.experiments import arch, λ_lrn, τ_ds
+    from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
     from mpnn_tpu_torch.models.steps import Schedules, make_train_step
     from mpnn_tpu_torch.ops import config
     from mpnn_tpu_torch.ops.kernels import fused_mcm
+    n_windows, n_window_steps = TRAIN_WINDOWS[arch]
     config.set_compute_dtype(DTYPES[precision])
     try:
-        net, params, state, vel = train_bench.build(0, device)
+        net, params, state, vel = train_bench.build(0, device, arch=arch)
         data = train_bench.train_data(net, device)
         extra = {}
         if precision == "bf16":
@@ -815,35 +1096,65 @@ def train_phase(device, precision):
         params, state, vel, c = step(params, state, vel, 0, gen, *data)
         loss_first, t = float(c), 0
         rates, losses = [], []
-        for _ in range(N_TRAIN_WINDOWS):
+        for _ in range(n_windows):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(N_TRAIN_STEPS):
+            for _ in range(n_window_steps):
                 t += 1
                 params, state, vel, c = step(params, state, vel, t, gen,
                                              *data)
             torch.cuda.synchronize()
-            rates.append(N_TRAIN_STEPS * TRAIN_BATCH
+            rates.append(n_window_steps * TRAIN_BATCH
                          / (time.perf_counter() - t0))
             losses.append(float(c))
         launches = fused_mcm.launches
+
+        def more(params, state, vel, t):
+            for _ in range(PROFILE_STEPS[arch]):
+                t += 1
+                params, state, vel, _ = step(params, state, vel, t, gen,
+                                             *data)
+        profile = profile_steps(more, (params, state, vel, t),
+                                PROFILE_STEPS[arch])
     finally:
         config.set_compute_dtype(None)
     check(all(np.isfinite(losses)) and np.isfinite(loss_first),
-          "train %s: loss not finite: %s" % (precision, losses))
-    n_steps = 1 + N_TRAIN_WINDOWS * N_TRAIN_STEPS
-    per_fwd = sum(len(a) for a in arch)
-    check(launches == per_fwd * n_steps, "train %s: %d launches in %d "
-          "steps, expected %d a step" % (precision, launches, n_steps,
-                                         per_fwd))
+          "train %s %s: loss not finite: %s" % (arch, precision, losses))
+    n_steps = 1 + n_windows * n_window_steps
+    per_fwd = mcm_launches_per_forward(net)
+    check(per_fwd == PER_FORWARD[arch] and launches == per_fwd * n_steps,
+          "train %s %s: %d launches in %d steps, expected %d a step"
+          % (arch, precision, launches, n_steps, PER_FORWARD[arch]))
     if precision == "bf16":
         extra["bf16_first_loss_kernel"] = loss_first
-    return {"batch": TRAIN_BATCH, "metric": "train-step (%s, batch %d)"
-            % (precision, TRAIN_BATCH), "value": statistics.median(rates),
+    label = "" if arch == "chain" else "tree, "
+    return {"arch": arch, "batch": TRAIN_BATCH,
+            "metric": "train-step (%s%s, batch %d)"
+            % (label, precision, TRAIN_BATCH),
+            "value": statistics.median(rates),
             "unit": "images/sec", "window_values": rates,
-            "window_steps": N_TRAIN_STEPS, "loss_first": loss_first,
+            "window_steps": n_window_steps, "loss_first": loss_first,
             "loss_window_ends": losses, "fused_mcm_launches": launches,
-            "steps": n_steps, **extra}
+            "steps": n_steps, "profile": profile, **extra}
+
+
+def profile_steps(run, args, n_steps):
+    """`run(*args)` (n_steps steps) under torch.profiler: the device time
+    per step, its operations per step and its idle share
+    (train_bench.step_split), without the list of operations."""
+    from mpnn_tpu_torch.train_bench import step_split
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    split = step_split(prof, n_steps)
+    split.pop("top_device_ops")
+    return dict(split, steps=n_steps,
+                profiled_ms_per_step=host_s * 1e3 / n_steps)
 
 
 def sweep_once(net, trees, k_cpts, data, stage=None):
@@ -883,28 +1194,29 @@ def sweep_once(net, trees, k_cpts, data, stage=None):
             "state": state, "launches": (n1 - n0, n2 - n1)}
 
 
-def sweep_vs_plain_phase(device):
-    """One fp32 step of the 8-net flagship sweep through the kernel's net
-    axis against the same step through mcm_ref, at the gates of
-    train_fp32_vs_plain over the sweep's stacked trees (the losses per
-    member); the worst member's errors and the same comparison for a
-    float64 stage are printed beside them."""
+def sweep_vs_plain_phase(device, arch="chain"):
+    """One fp32 step of the 8-net sweep of flagship actor chains (or trees)
+    through the kernel's net axis against the same step through mcm_ref,
+    at the gates of train_fp32_vs_plain over the sweep's stacked trees
+    (the losses per member); the worst member's errors and, for the chain,
+    the same comparison for a float64 stage are printed beside them."""
     from mpnn_tpu_torch import train_bench
-    from mpnn_tpu_torch.experiments import arch
     from mpnn_tpu_torch.ops import config
     from mpnn_tpu_torch.utils.tree import unstack_tree
     config.set_compute_dtype(None)
-    net, params, state, vel, k_cpts = train_bench.build_sweep(N_NETS, 0,
-                                                              device)
+    net, params, state, vel, k_cpts = train_bench.build_sweep(
+        N_NETS, 0, device, arch)
     data = train_bench.train_data(net, device)
     k = sweep_once(net, (params, state, vel), k_cpts, data)
     r = sweep_once(net, (params, state, vel), k_cpts, data, _plain_stage)
-    f64 = sweep_once(net, (params, state, vel), k_cpts, data,
-                     _float64_stage)
-    per_fwd = sum(len(a) for a in arch)
-    check(k["launches"] == (per_fwd, per_fwd) and r["launches"] == (0, 0),
-          "sweep: kernel launches per sweep forward %s, expected %d (plain "
-          "path %s)" % (k["launches"], per_fwd, r["launches"]))
+    f64 = (sweep_once(net, (params, state, vel), k_cpts, data,
+                      _float64_stage) if arch == "chain" else None)
+    per_fwd = mcm_launches_per_forward(net)
+    check(per_fwd == PER_FORWARD[arch] and k["launches"] == (per_fwd, per_fwd)
+          and r["launches"] == (0, 0),
+          "sweep %s: kernel launches per sweep forward %s, expected %d "
+          "(plain path %s)" % (arch, k["launches"], PER_FORWARD[arch],
+                               r["launches"]))
     zero = zero_grad_paths(net)
     names = {"gradient": "grads", "parameter": "params",
              "BatchNorm statistic": "state"}
@@ -938,31 +1250,34 @@ def sweep_vs_plain_phase(device):
                                                stacked[name]["worst_leaf"]))
     # Not gates: the member the flips move most, and the same comparisons
     # for a float64 stage, which rounds differently without being wrong.
-    return {"nets": N_NETS, "batch": TRAIN_BATCH, "k_cpts": k_cpts.tolist(),
-            "loss": k["loss"], "loss_plain": r["loss"],
-            "loss_rel_err": max(loss_errs), "errors": stacked,
-            "tolerances": TRAIN_TOL,
-            "worst_member": worst_member(k, r),
-            "float64_stage_vs_plain": {"errors": errs(f64, r),
-                                       "worst_member": worst_member(f64, r)},
-            "launches_per_sweep_forward": per_fwd}
+    out = {"arch": arch, "nets": N_NETS, "batch": TRAIN_BATCH,
+           "k_cpts": k_cpts.tolist(), "loss": k["loss"],
+           "loss_plain": r["loss"], "loss_rel_err": max(loss_errs),
+           "errors": stacked, "tolerances": TRAIN_TOL,
+           "worst_member": worst_member(k, r),
+           "launches_per_sweep_forward": per_fwd}
+    if f64 is not None:
+        out["float64_stage_vs_plain"] = {"errors": errs(f64, r),
+                                         "worst_member": worst_member(f64, r)}
+    return out
 
 
-def sweep_train_phase(device, precision, single):
+def sweep_train_phase(device, precision, single, arch="chain"):
     """The sweep's training main path in one precision: N_NETS flagship
-    chains trained at once by make_sweep_train_loop, a warm-up step, then
-    N_SWEEP_WINDOWS windows of one N_TRAIN_STEPS-step call each, the
+    chains (or trees) trained at once by make_sweep_train_loop, a warm-up
+    step, then timed windows (SWEEP_WINDOWS) of one call each, the
     kernel's counts from 0; `single` is the same call's single-net
     record of train_phase."""
     from mpnn_tpu_torch import train_bench
-    from mpnn_tpu_torch.experiments import arch, λ_lrn, τ_ds
+    from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
     from mpnn_tpu_torch.models.steps import Schedules, make_sweep_train_loop
     from mpnn_tpu_torch.ops import config
     from mpnn_tpu_torch.ops.kernels import fused_mcm
+    n_windows, n_window_steps = SWEEP_WINDOWS[arch]
     config.set_compute_dtype(DTYPES[precision])
     try:
         net, params, state, vel, k_cpts = train_bench.build_sweep(
-            N_NETS, 0, device)
+            N_NETS, 0, device, arch)
         data = train_bench.train_data(net, device)
         loop = make_sweep_train_loop(net, TRAIN_BATCH,
                                      Schedules(lr=λ_lrn, tau=τ_ds))
@@ -973,38 +1288,101 @@ def sweep_train_phase(device, precision, single):
                                       k_cpts)
         loss_first, t = cs[-1].tolist(), 1
         rates, losses = [], []
-        for _ in range(N_SWEEP_WINDOWS):
+        for _ in range(n_windows):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, state, vel, cs = loop(params, state, vel, t, 0, *data,
-                                          N_TRAIN_STEPS, k_cpts)
-            t += N_TRAIN_STEPS
+                                          n_window_steps, k_cpts)
+            t += n_window_steps
             torch.cuda.synchronize()
-            rates.append(N_NETS * N_TRAIN_STEPS * TRAIN_BATCH
+            rates.append(N_NETS * n_window_steps * TRAIN_BATCH
                          / (time.perf_counter() - t0))
             losses.append(cs[-1].tolist())
         launches, net_launches = fused_mcm.launches, fused_mcm.net_launches
+        profile = None
+        if arch == "tree":
+            n = PROFILE_STEPS[arch]
+            profile = profile_steps(
+                lambda *a: loop(*a, 0, *data, n, k_cpts),
+                (params, state, vel, t), n)
     finally:
         config.set_compute_dtype(None)
     check(all(np.isfinite(v).all() for v in losses + [loss_first]),
-          "sweep %s: loss not finite: %s" % (precision, losses))
-    per_fwd = sum(len(a) for a in arch)
-    n_steps = 1 + N_SWEEP_WINDOWS * N_TRAIN_STEPS
-    check(launches == net_launches == per_fwd * n_steps, "sweep %s: %d "
-          "launches (%d of the net axis) in %d steps, expected %d a step"
-          % (precision, launches, net_launches, n_steps, per_fwd))
+          "sweep %s %s: loss not finite: %s" % (arch, precision, losses))
+    per_fwd = mcm_launches_per_forward(net)
+    n_steps = 1 + n_windows * n_window_steps
+    check(per_fwd == PER_FORWARD[arch]
+          and launches == net_launches == per_fwd * n_steps,
+          "sweep %s %s: %d launches (%d of the net axis) in %d steps, "
+          "expected %d a step" % (arch, precision, launches, net_launches,
+                                  n_steps, PER_FORWARD[arch]))
     value = statistics.median(rates)
-    return {"nets": N_NETS, "batch_per_net": TRAIN_BATCH,
-            "metric": "train-sweep (%s, %d nets x batch %d)"
-            % (precision, N_NETS, TRAIN_BATCH), "value": value,
+    label = "" if arch == "chain" else "tree, "
+    return {"arch": arch, "nets": N_NETS, "batch_per_net": TRAIN_BATCH,
+            "metric": "train-sweep (%s%s, %d nets x batch %d)"
+            % (label, precision, N_NETS, TRAIN_BATCH), "value": value,
             "unit": "images/sec (all nets)", "window_values": rates,
-            "window_steps": N_TRAIN_STEPS,
+            "window_steps": n_window_steps, "profile": profile,
             "single_net_value": single["value"],
             "single_net_window_values": single["window_values"],
             "vs_single_net": value / single["value"],
             "loss_first": loss_first, "loss_window_ends": losses,
             "fused_mcm_launches": launches,
             "fused_mcm_net_launches": net_launches, "steps": n_steps}
+
+
+def bf16_vs_fp32(run, zero):
+    """The C1 gate of bf16 training: `run(stage)` (one step of the same
+    params and batch, through the kernel for stage None or through
+    mcm_ref) in bf16 and in fp32; the kernel path's bf16 gradients may be
+    at most BF16_VS_FP32_FACTOR times as far from its fp32 gradients, over
+    the whole tree, as mcm_ref's bf16 gradients are from mcm_ref's fp32
+    ones. The worst leaf's distances are printed beside them."""
+    from mpnn_tpu_torch.ops import config
+    grads = {}
+    for dt in ("bf16", "fp32"):
+        config.set_compute_dtype(DTYPES[dt] if dt == "bf16" else None)
+        try:
+            for name, stage in (("kernel", None), ("plain", _plain_stage)):
+                grads[name, dt] = run(stage)["grads"]
+        finally:
+            config.set_compute_dtype(None)
+    dist = {name: tree_errs(grads[name, "bf16"], grads[name, "fp32"], zero)
+            for name in ("kernel", "plain")}
+    check(dist["kernel"]["tree"]
+          <= BF16_VS_FP32_FACTOR * dist["plain"]["tree"],
+          "bf16 vs fp32: the kernel path's gradient distance %g > %g x "
+          "mcm_ref's %g" % (dist["kernel"]["tree"], BF16_VS_FP32_FACTOR,
+                            dist["plain"]["tree"]))
+    return {"kernel_bf16_vs_kernel_fp32": dist["kernel"],
+            "plain_bf16_vs_plain_fp32": dist["plain"],
+            "tree_ratio": dist["kernel"]["tree"] / dist["plain"]["tree"],
+            "leaf_ratio": dist["kernel"]["leaf"] / dist["plain"]["leaf"],
+            "gate": "tree distance ratio <= %g" % BF16_VS_FP32_FACTOR}
+
+
+def train_bf16_vs_fp32_phase(device):
+    """One step of the fresh flagship chain at the training batch, four
+    ways from the same params and batch (kernel and mcm_ref, bf16 and
+    fp32), held to the bf16_vs_fp32 gate."""
+    from mpnn_tpu_torch import train_bench
+    net, params, state, vel = train_bench.build(0, device)
+    data = train_bench.train_data(net, device)
+    return dict(batch=TRAIN_BATCH, **bf16_vs_fp32(
+        lambda stage: train_once(net, params, state, vel, data, stage),
+        zero_grad_paths(net)))
+
+
+def sweep_bf16_vs_fp32(device):
+    """bf16_vs_fp32 of one step of the 8-net flagship sweep (the stacked
+    gradients of all members)."""
+    from mpnn_tpu_torch import train_bench
+    net, params, state, vel, k_cpts = train_bench.build_sweep(N_NETS, 0,
+                                                              device)
+    data = train_bench.train_data(net, device)
+    return bf16_vs_fp32(
+        lambda stage: sweep_once(net, (params, state, vel), k_cpts, data,
+                                 stage), zero_grad_paths(net))
 
 
 def mcm_launches_per_forward(net):
@@ -1090,13 +1468,13 @@ def train_cli_phase(device):
                          bool(same) and all(same), extra["t"]))
         sweep_root = os.path.join(d, "nets-sweep")
         sweep_rows = []
-        for n_iter, resume in SWEEP_CLI_RUNS:
+        for expt, n_iter, resume in SWEEP_CLI_RUNS:
             n0, timings, buf = fused_mcm.launches, [], io.StringIO()
             t = time.perf_counter()
             with mock.patch.object(cli, "_train_sweep", keep_sweep), \
                     contextlib.redirect_stdout(buf):
                 cli.train_experiment(
-                    "synth-ac", n_iter=n_iter, t_log=CLI_T_LOG,
+                    expt, n_iter=n_iter, t_log=CLI_T_LOG,
                     batch_size=TRAIN_BATCH, data_root=d,
                     out_root=sweep_root, resume=resume, device=device,
                     timings=timings, vmap_sweep=True)
@@ -1105,12 +1483,12 @@ def train_cli_phase(device):
             same, ckpt_ts = [], []
             for j in range(N_NETS):
                 _, params, state, extra = read_net(os.path.join(
-                    sweep_root, "synth-ac", "%.4i.npy" % j), device)
+                    sweep_root, expt, "%.4i.npy" % j), device)
                 tree_map(lambda a, b: same.append(torch.equal(a, b)),
                          (params, state, extra["vel"]),
                          [unstack_tree(tr, j) for tr in live[-1][:3]])
                 ckpt_ts.append(extra["t"])
-            sweep_rows.append((n_iter, resume, timings[0], wall, n,
+            sweep_rows.append((expt, n_iter, resume, timings[0], wall, n,
                                buf.getvalue(), live[-1][3],
                                bool(same) and all(same), ckpt_ts))
         launches = fused_mcm.launches
@@ -1168,21 +1546,23 @@ def train_cli_phase(device):
                 "total_img_s": imgs / tm["total_s"],
                 "acc_ts": desc["stats_ts"]["acc"]})
 
-        e = registry["synth-ac"]
-        ds = Dataset(os.path.join(d, e.dataset), device_put=False)
-        net = e.nets[0](ds.x0_shape, ds.y_shape)
-        per_fwd = mcm_launches_per_forward(net)
-        eval_batches = sum(-(-len(x) // TRAIN_BATCH)
-                           for x in (ds.x0_tr, ds.x0_ts))
-        t_start, sweep_records = 0, []
-        for (n_iter, resume, tm, wall, n, text, descs, same,
+        reached, sweep_records = {}, []
+        for (expt, n_iter, resume, tm, wall, n, text, descs, same,
              ckpt_ts) in sweep_rows:
+            e = registry[expt]
+            ds = Dataset(os.path.join(d, e.dataset), device_put=False)
+            net = e.nets[0](ds.x0_shape, ds.y_shape)
+            per_fwd = mcm_launches_per_forward(net)
+            eval_batches = sum(-(-len(x) // TRAIN_BATCH)
+                               for x in (ds.x0_tr, ds.x0_ts))
+            t_start = reached.get(expt, 0) if resume else 0
+            reached[expt] = n_iter
             evals = (sum(t % CLI_T_LOG == 0
                          for t in range(t_start + 1, n_iter + 1))
                      + (n_iter % CLI_T_LOG != 0))
             expect = per_fwd * (n_iter - t_start + evals * eval_batches)
-            label = "synth-ac --vmap-sweep to %d%s" % (
-                n_iter, " (resumed)" if resume else "")
+            label = "%s --vmap-sweep to %d%s" % (
+                expt, n_iter, " (resumed)" if resume else "")
             check(n == expect, "train_cli %s: %d launches, expected %d = %d "
                   "x (%d steps + %d evals x %d batches)" % (
                       label, n, expect, per_fwd, n_iter - t_start, evals,
@@ -1192,9 +1572,9 @@ def train_cli_phase(device):
                   "with %d evals of %d nets" % (label, tm["t_start"],
                                                 tm["evals"], tm["n_nets"]))
             if resume:
-                check("[resuming synth-ac sweep at t=%d]" % t_start in text,
+                check("[resuming %s sweep at t=%d]" % (expt, t_start) in text,
                       "train_cli %s: no resume at t=%d" % (label, t_start))
-            root = os.path.join(sweep_root, "synth-ac")
+            root = os.path.join(sweep_root, expt)
             names = ["MANIFEST.json"] + [
                 name % j for j in range(N_NETS)
                 for name in ["%.4i-stats.npy", "%.4i-log.txt", "%.4i.npy"]
@@ -1220,7 +1600,6 @@ def train_cli_phase(device):
                 "train_img_s_all_nets": imgs / tm["train_s"],
                 "total_img_s_all_nets": imgs / tm["total_s"],
                 "acc_ts": [desc["stats_ts"]["acc"] for desc in descs]})
-            t_start = n_iter
 
         # The sweep's final descriptor of one member, from its vmapped
         # evaluation through the kernel's net axis, against net_desc of the
@@ -1229,12 +1608,13 @@ def train_cli_phase(device):
             sweep_root, "synth-ac", "%.4i.npy" % SWEEP_DESC_NET), device)
         ds = Dataset(os.path.join(d, registry["synth-ac"].dataset),
                      device=device)
+        last = [r for r in sweep_rows if r[0] == "synth-ac"][-1]
         with mock.patch.object(kernels, "fused_mcm", _plain_stage):
             plain = net_desc(net, ds, params, state, batch_size=TRAIN_BATCH,
-                             tau=τ_ds(SWEEP_CLI_RUNS[-1][0] - 1))
+                             tau=τ_ds(last[1] - 1))
         sweep_diffs = [(abs(a - b) / max(1.0, abs(b)), p)
                        for (p, a), (_, b) in zip(
-                           _scalar_stats(sweep_rows[-1][6][SWEEP_DESC_NET]),
+                           _scalar_stats(last[7][SWEEP_DESC_NET]),
                            _scalar_stats(plain))]
         sweep_worst, sweep_worst_path = max(sweep_diffs)
         check(sweep_worst <= DESC_TOL, "train_cli: the sweep's descriptor of "
@@ -1271,6 +1651,157 @@ def train_cli_phase(device):
                 "net": SWEEP_DESC_NET, "max_err": sweep_worst,
                 "at": sweep_worst_path, "n_stats": len(sweep_diffs),
                 "tolerance": DESC_TOL}}
+
+
+# (experiment, n_iter, t_log, stats_log, resume) of the adaptive_cli phase,
+# each one `python -m mpnn_tpu_torch.train_adaptive` process.
+ADAPTIVE_RUNS = [("synth-ac-tree-dynkcpt", 20, 10, True, False),
+                 ("synth-ac-tree-dynkcpt", 30, 10, True, True),
+                 ("synth-cr-dynkcpt", 20, None, False, False)]
+DEFAULT_T_LOG = 2500
+
+
+def _records_equal(a, b):
+    """Two decoded checkpoint records equal, arrays bit for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_records_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_records_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def adaptive_cli_phase(device):
+    """The adaptive trainer's CLI, `python -m mpnn_tpu_torch.train_adaptive`,
+    as separate processes on the small synthetic archive, fp32, batch 128
+    (ADAPTIVE_RUNS). Gates: the files; net.npy read back by the port and
+    written again equals the file bit for bit, with t = n_iter; the resume
+    starts where the first run ended; each process's launches (its last
+    line) equal per_forward x (steps + evaluations x eval batches), the
+    evaluations one per k_cpt at every stats boundary and at the end; the
+    final tree's descriptor files, written through the kernel, equal
+    net_desc of its net.npy through mcm_ref within DESC_TOL x max(1,
+    |stat|) at every k_cpt."""
+    import subprocess
+    import tempfile
+    from mpnn_tpu_torch.data.dataset import Dataset
+    from mpnn_tpu_torch.data.prep import save_archive, synthetic_archive
+    from mpnn_tpu_torch.experiments import (k_cpts,
+                                            make_adaptive_experiments)
+    from mpnn_tpu_torch.ops import config, kernels
+    from mpnn_tpu_torch.utils.desc import net_desc
+    from mpnn_tpu_torch.utils.serdes import encode_net, read_net
+
+    registry = make_adaptive_experiments()
+    config.set_compute_dtype(None)
+    records, launches, reached = [], 0, {}
+    with tempfile.TemporaryDirectory() as d:
+        save_archive(os.path.join(d, "data", "synth.npz"),
+                     synthetic_archive("synth.npz", small=True))
+        ds = Dataset(os.path.join(d, "data", "synth.npz"), device=device)
+        eval_batches = sum(-(-len(x) // TRAIN_BATCH)
+                           for x in (ds.x0_tr, ds.x0_ts))
+        out_root = os.path.join(d, "nets")
+        for expt, n_iter, t_log, stats_log, resume in ADAPTIVE_RUNS:
+            cmd = [sys.executable, "-m", "mpnn_tpu_torch.train_adaptive",
+                   expt, "--n-iter", str(n_iter), "--batch-size",
+                   str(TRAIN_BATCH), "--data-root", d, "--out-root",
+                   out_root]
+            cmd += ["--t-log", str(t_log)] if t_log else []
+            cmd += ["--stats-log"] if stats_log else []
+            cmd += ["--resume"] if resume else []
+            t = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True,
+                                  text=True, timeout=600)
+            wall = time.perf_counter() - t
+            label = " ".join(cmd[3:4] + cmd[4:6] + cmd[12:])
+            check(proc.returncode == 0, "adaptive_cli %s: exit %d: %s"
+                  % (label, proc.returncode, proc.stderr[-2000:]))
+            tm = json.loads(proc.stdout.strip().splitlines()[-1])
+            t_start = reached.get(expt, 0) if resume else 0
+            reached[expt] = n_iter
+            chunk = min(n_iter, t_log or DEFAULT_T_LOG)
+            boundaries = [t for t in range(t_start + 1, n_iter)
+                          if t % chunk == 0] if stats_log else []
+            evals = len(k_cpts) * (len(boundaries) + 1)
+            net = registry[expt].net(ds.x0_shape, ds.y_shape)
+            per_fwd = mcm_launches_per_forward(net)
+            expect = per_fwd * (n_iter - t_start + evals * eval_batches)
+            check(tm["t_start"] == t_start and tm["evals"] == evals
+                  and tm["fused_mcm_launches"] == expect,
+                  "adaptive_cli %s: started at %d with %d evaluations and "
+                  "%d launches, expected %d, %d and %d = %d x (%d steps + "
+                  "%d x %d batches)" % (
+                      label, tm["t_start"], tm["evals"],
+                      tm["fused_mcm_launches"], t_start, evals, expect,
+                      per_fwd, n_iter - t_start, evals, eval_batches))
+            root = os.path.join(out_root, expt)
+            ckpt = os.path.join(root, "net.npy")
+            if resume:
+                check("[resuming %s at t=%d]" % (ckpt, t_start)
+                      in proc.stdout, "adaptive_cli %s: no resume at t=%d"
+                      % (label, t_start))
+            snaps = list(range(chunk, n_iter + 1, chunk)) if stats_log else []
+            names = (["MANIFEST.json", "net.npy"]
+                     + ["%.4i-stats.npy" % i for i in range(len(k_cpts))]
+                     + ["%.4i-stats/%.8i.npy" % (i, t_)
+                        for i in range(len(k_cpts)) for t_ in snaps])
+            missing = [x for x in names
+                       if not os.path.exists(os.path.join(root, x))]
+            check(not missing, "adaptive_cli %s: missing %s"
+                  % (label, missing))
+            raw = np.load(ckpt, allow_pickle=True)[()]
+            net_r, params, state, extra = read_net(ckpt, device)
+            again = encode_net(net_r, params, state, extra)
+            check(_records_equal(again, raw) and extra["t"] == n_iter,
+                  "adaptive_cli %s: net.npy does not read back bit for bit "
+                  "(t=%s)" % (label, extra["t"]))
+            launches += tm["fused_mcm_launches"]
+            imgs = tm["steps"] * tm["batch_size"]
+            records.append({
+                "run": label, "steps": tm["steps"], "evals": evals,
+                "eval_batches": eval_batches,
+                "launches": tm["fused_mcm_launches"],
+                "launches_per_forward": per_fwd, "wall_s": wall,
+                "train_s": tm["train_s"], "eval_s": tm["eval_s"],
+                "write_s": tm["write_s"], "total_s": tm["total_s"],
+                "eval_s_per_eval": tm["eval_s"] / evals,
+                "train_img_s": imgs / tm["train_s"],
+                "total_img_s": imgs / tm["total_s"]})
+
+        # The tree's final descriptor files (written through the kernel)
+        # against net_desc of its net.npy through mcm_ref.
+        expt = ADAPTIVE_RUNS[1][0]
+        tau_fn = registry[expt].tau
+        net, params, state, extra = read_net(
+            os.path.join(out_root, expt, "net.npy"), device)
+        worst, worst_at = 0.0, None
+        with mock.patch.object(kernels, "fused_mcm", _plain_stage):
+            for i, k_cpt in enumerate(k_cpts):
+                plain = net_desc(net, ds, params, state,
+                                 batch_size=TRAIN_BATCH,
+                                 tau=tau_fn(extra["t"] - 1), k_cpt=k_cpt)
+                written = np.load(os.path.join(out_root, expt,
+                                               "%.4i-stats.npy" % i),
+                                  allow_pickle=True)[()]
+                a, b = _scalar_stats(written), _scalar_stats(plain)
+                check([p for p, _ in a] == [p for p, _ in b],
+                      "adaptive_cli: descriptor schemas differ")
+                for (p, x), (_, y) in zip(a, b):
+                    e = abs(x - y) / max(1.0, abs(y))
+                    if e >= worst:
+                        worst, worst_at = e, "k_cpt %d %s" % (i, p)
+        check(worst <= DESC_TOL, "adaptive_cli: the descriptor files and "
+              "net_desc through mcm_ref differ by %g at %s"
+              % (worst, worst_at))
+    return {"batch": TRAIN_BATCH, "precision": "fp32", "runs": records,
+            "fused_mcm_launches": launches,
+            "desc_kernel_vs_plain": {"max_err": worst, "at": worst_at,
+                                     "tolerance": DESC_TOL}}
 
 
 def main():
@@ -1317,6 +1848,7 @@ def main():
     # 6. train: the kernel against mcm_ref for one step, then the training
     # main path in each precision, its launches counted from 0.
     phase("train_fp32_vs_plain", **train_vs_plain_phase(device))
+    phase("train_bf16_vs_fp32", **train_bf16_vs_fp32_phase(device))
     train = {dt: train_phase(device, dt) for dt in ("fp32", "bf16")}
     for dt, rec in train.items():
         phase("train_" + dt, **rec)
@@ -1327,13 +1859,43 @@ def main():
     phase("sweep_fp32_vs_plain", **sweep_vs_plain_phase(device))
     sweep = {dt: sweep_train_phase(device, dt, train[dt])
              for dt in ("fp32", "bf16")}
+    sweep["bf16"]["bf16_vs_fp32"] = sweep_bf16_vs_fp32(device)
     for dt, rec in sweep.items():
         phase("sweep_train_" + dt, **rec)
+
+    # 7b. the 47-stage actor tree: one fp32 step against mcm_ref, its
+    # training main path in each precision beside the chain's rate, then the
+    # sweep of 8 trees; each path's launches counted from 0.
+    phase("tree_train_fp32_vs_plain",
+          **train_vs_plain_phase(device, "tree"))
+    tree_train = {dt: train_phase(device, dt, "tree")
+                  for dt in ("fp32", "bf16")}
+    for dt, rec in tree_train.items():
+        phase("tree_train_" + dt, chain_value=train[dt]["value"], **rec)
+    tree_sweep_check = sweep_vs_plain_phase(device, "tree")
+    tree_sweep = {dt: sweep_train_phase(device, dt, tree_train[dt], "tree")
+                  for dt in ("fp32", "bf16")}
+    phase("tree_sweep_train_fp32", vs_plain=tree_sweep_check,
+          **tree_sweep["fp32"])
+    phase("tree_sweep_train_bf16", **tree_sweep["bf16"])
+
+    # 7c. routed serving of the trained adaptive tree (its bf16 serving
+    # counted from 0), and its descriptors beside its training's files.
+    serve_tree, tree = tree_serve_phase(device)
+    phase("tree_serve", **serve_tree)
+    phase("tree_desc_vs_jax_files", **tree_desc_phase(device, tree))
+    del tree
 
     # 8. the training CLI's path, serial and --vmap-sweep, its launches
     # counted from 0.
     cli = train_cli_phase(device)
     phase("train_cli", **cli)
+
+    # 9. the adaptive trainer's CLI, in processes of its own.
+    adaptive = adaptive_cli_phase(device)
+    phase("adaptive_cli", **adaptive)
+    tree_cli = {r["run"]: r["launches"] for r in cli["runs"] + cli[
+        "sweep_runs"] if "-tree" in r["run"]}
 
     bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
     bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
@@ -1355,6 +1917,9 @@ def main():
         "train_cli_launches": {"total": cli["fused_mcm_launches"],
                                **{r["run"]: r["launches"]
                                   for r in cli["runs"]}},
+        "tree_launches": {"tree_train_bf16":
+                          tree_train["bf16"]["fused_mcm_launches"],
+                          "tree_serve": serve_tree["fused_mcm_launches"]},
         "dtype": "bf16",
         "work": "the eight flagship stages, batch %d, one call each"
                 % BATCH,
@@ -1391,6 +1956,10 @@ def main():
         "launches_on": "the fp32 training main path (train_fp32), counted "
                        "from 0",
         "sweep_launches": sweep["fp32"]["fused_mcm_net_launches"],
+        "tree_launches": {"tree_train_fp32":
+                          tree_train["fp32"]["fused_mcm_launches"],
+                          "adaptive_cli": adaptive["fused_mcm_launches"],
+                          **tree_cli},
         "dtype": "fp32",
         "work": "the eight flagship stages, batch %d, one call each" % BATCH,
         "max_abs_err": max(r["max_abs_err"] for r in f32),
@@ -1426,6 +1995,8 @@ def main():
                            for dt, r in sweep.items()},
         "train_cli_sweep_launches": {r["run"]: r["launches"]
                                      for r in cli["sweep_runs"]},
+        "tree_sweep_launches": {dt: r["fused_mcm_net_launches"]
+                                for dt, r in tree_sweep.items()},
         "dtype": "bf16",
         "work": "the eight flagship stages for %d nets x batch %d, stage "
                 "0's input shared, one call each" % (N_NETS, TRAIN_BATCH),

@@ -7,7 +7,7 @@ both packages take the same arrays."""
 
 import torch
 
-__all__ = ["resolve_device", "synchronize"]
+__all__ = ["resolve_device", "set_up_device", "synchronize"]
 
 
 def resolve_device(device="cuda"):
@@ -21,6 +21,20 @@ def resolve_device(device="cuda"):
             "False; pass device='cpu' (--device cpu) to run on the CPU"
             % str(device))
     return dev
+
+
+def set_up_device(device, precision):
+    """The entry points' device (`resolve_device`) and compute type: TF32
+    off on CUDA (fp32 means fp32 in cuDNN convs and cuBLAS matmuls), bf16
+    as the compute dtype for precision "bf16"."""
+    from .ops import config
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    config.set_compute_dtype(torch.bfloat16 if precision == "bf16"
+                             else None)
+    return device
 
 
 def synchronize(device):

@@ -19,7 +19,13 @@ import numpy as np
 
 from .synth import TIERED_V2, make_synthetic, make_synthetic_tiered
 
-__all__ = ["save_archive", "make_synthetic_archives", "main"]
+__all__ = ["save_archive", "synthetic_archive", "make_synthetic_archives",
+           "main"]
+
+# The registry's dataset file names and their class counts.
+SPECS = {"synth.npz": dict(n_cls=10), "mnist.npz": dict(n_cls=10),
+         "cifar-10.npz": dict(n_cls=10), "cifar-5.npz": dict(n_cls=5),
+         "cifar-2.npz": dict(n_cls=2), "hybrid.npz": dict(n_cls=10)}
 
 
 def save_archive(path, archive):
@@ -29,36 +35,36 @@ def save_archive(path, archive):
     np.savez_compressed(path, archive)
 
 
+def synthetic_archive(name, small=False):
+    """The synthetic stand-in of one registry dataset file name (a key of
+    `SPECS`), seeded from the name: with small, 512 train / 256 test
+    examples of `make_synthetic`; otherwise the tiered easy/hard set of
+    50,000 / 2,000 (MNIST stays the easy generator at 4,096 / 1,024)."""
+    spec = SPECS[name]
+    # zlib.crc32 is stable across processes (hash() is salted).
+    seed = zlib.crc32(name.encode()) % (2 ** 31)
+    if name != "mnist.npz" and not small:
+        arch = make_synthetic_tiered(
+            n_tr=50000, n_ts=2000, h=32, w=32, c=3, n_cls=spec["n_cls"],
+            seed=seed, **TIERED_V2)
+    else:
+        size = dict(n_tr=512, n_ts=256) if small else dict(n_tr=4096,
+                                                           n_ts=1024)
+        arch = make_synthetic(h=32, w=32, c=3, seed=seed, **spec, **size)
+    if name == "mnist.npz":
+        arch["m_sym"] = np.zeros(spec["n_cls"])
+    elif name == "hybrid.npz":
+        arch["m_sym"] = np.array([0] * 5 + [1] * 5)
+    return arch
+
+
 def make_synthetic_archives(data_dir="data", small=False):
-    """One synthetic archive per registry dataset name in `data_dir`;
-    returns the sorted file names. small: 512 train / 256 test examples of
-    `make_synthetic`; otherwise the tiered easy/hard sets (50,000 / 2,000;
-    MNIST stays the easy generator)."""
-    size = dict(n_tr=512, n_ts=256) if small else dict(n_tr=4096, n_ts=1024)
-    specs = {
-        "synth.npz": dict(n_cls=10, **size),
-        "mnist.npz": dict(n_cls=10, **size),
-        "cifar-10.npz": dict(n_cls=10, **size),
-        "cifar-5.npz": dict(n_cls=5, **size),
-        "cifar-2.npz": dict(n_cls=2, **size),
-        "hybrid.npz": dict(n_cls=10, **size),
-    }
+    """One synthetic archive per registry dataset name in `data_dir`
+    (`synthetic_archive`); returns the sorted file names."""
     os.makedirs(data_dir, exist_ok=True)
-    for name, spec in specs.items():
-        # zlib.crc32 is stable across processes (hash() is salted).
-        seed = zlib.crc32(name.encode()) % (2 ** 31)
-        if name != "mnist.npz" and not small:
-            arch = make_synthetic_tiered(
-                n_tr=50000, n_ts=2000, h=32, w=32, c=3,
-                n_cls=spec["n_cls"], seed=seed, **TIERED_V2)
-        else:
-            arch = make_synthetic(h=32, w=32, c=3, seed=seed, **spec)
-        if name == "mnist.npz":
-            arch["m_sym"] = np.zeros(spec["n_cls"])
-        elif name == "hybrid.npz":
-            arch["m_sym"] = np.array([0] * 5 + [1] * 5)
-        save_archive(join(data_dir, name), arch)
-    return sorted(specs)
+    for name in SPECS:
+        save_archive(join(data_dir, name), synthetic_archive(name, small))
+    return sorted(SPECS)
 
 
 def main(argv=None):

@@ -1,8 +1,8 @@
 """Architectures, training constants, net constructors and the experiment
-registry (counterpart of `mpnn_tpu/experiments.py`): the reference's
-constants, schedules and component builders, and every registry entry
-whose nets are chains. The three `*-tree` entries wait for the port of
-`dr_tree` (`TREE_EXPERIMENTS`); the adaptive registry is not ported."""
+registries (counterpart of `mpnn_tpu/experiments.py`): the reference's
+constants, schedules and component builders, the chain and tree
+constructors, the train-nets registry and the train-adaptive-nets
+registry, entry for entry."""
 
 from types import SimpleNamespace as Ns
 
@@ -101,24 +101,49 @@ def dr_chain(type_, width=1, **hypers):
     return make_net
 
 
+def dr_tree(type_, **hypers):
+    """Dynamically-routed branching tree: 2-way fans at depths 0-2 (each
+    fan node also feeds an early-exit LogReg leaf, so its router is
+    3-way), then eight 5-deep chain tails of the same shape."""
+    def make_net(x0_shape, y_shape):
+        def tail():
+            node = rcm(len(arch) - 1, reg(y_shape[0]))
+            for i in reversed(range(3, len(arch) - 1)):
+                node = rcm(i, reg(y_shape[0]), node)
+            return node
+
+        def fan(i):
+            if i < 3:
+                return rcm(i, reg(y_shape[0]), fan(i + 1), fan(i + 1))
+            return tail()
+
+        root = pyr(fan(0))
+        return type_(x0_shape=x0_shape, y_shape=y_shape, root=root, **hypers)
+    return make_net
+
+
 def ac_chain(**hypers):
     return dr_chain(ActorNet, **hypers)
+
+
+def ac_tree(**hypers):
+    return dr_tree(ActorNet, **hypers)
 
 
 def cr_chain(**hypers):
     return dr_chain(CriticNet, **hypers)
 
 
+def cr_tree(**hypers):
+    return dr_tree(CriticNet, **hypers)
+
+
 ################################################################################
-# Experiment registry
+# Experiment registries
 ################################################################################
 
 # Per-net-type tau schedule (None: the net's own τ).
 SR_TAU, AC_TAU, CR_TAU = None, τ_ds, τ_cr
-
-# Registry entries of `mpnn_tpu` whose nets are trees (dr_tree): not ported.
-TREE_EXPERIMENTS = ("hybrid-ac-tree", "synth-ac-tree", "synth-cr-tree")
-
 
 def _sweep_sr(dataset, width=1):
     return Ns(dataset=dataset,
@@ -136,7 +161,7 @@ def _sweep(dataset, ctor, tau, **hypers):
 
 
 def make_experiments():
-    """The chain entries of `mpnn_tpu`'s train-nets registry, by name."""
+    """`mpnn_tpu`'s train-nets registry, by name."""
     return {
         "hybrid-sr": _sweep_sr("data/hybrid.npz"),
         "hybrid-ac": _sweep("data/hybrid.npz", ac_chain, AC_TAU),
@@ -144,6 +169,7 @@ def make_experiments():
                                    k_dec=0),
         "hybrid-ac-notalr": _sweep("data/hybrid.npz", ac_chain, AC_TAU,
                                    talr=False),
+        "hybrid-ac-tree": _sweep("data/hybrid.npz", ac_tree, AC_TAU),
         "hybrid-ac-globopt": _sweep("data/hybrid.npz", ac_chain, AC_TAU,
                                     globopt=True, talr=False),
         "hybrid-cr": _sweep("data/hybrid.npz", cr_chain, CR_TAU),
@@ -172,4 +198,46 @@ def make_experiments():
         "synth-ac-globopt": _sweep("data/synth.npz", ac_chain, AC_TAU,
                                    globopt=True, talr=False),
         "synth-cr": _sweep("data/synth.npz", cr_chain, CR_TAU),
+        "synth-ac-tree": _sweep("data/synth.npz", ac_tree, AC_TAU),
+        "synth-cr-tree": _sweep("data/synth.npz", cr_tree, CR_TAU),
+    }
+
+
+def make_adaptive_experiments():
+    """`mpnn_tpu`'s train-adaptive-nets registry, by name: single nets
+    whose routers condition on the price (dyn_k_cpt), trained with k_cpt
+    sampled per example from `k_cpts` each batch."""
+    return {
+        "hybrid-ac-dynkcpt": Ns(
+            dataset="data/hybrid.npz", net=ac_chain(dyn_k_cpt=True),
+            tau=AC_TAU),
+        "hybrid-ac-tree-dynkcpt": Ns(
+            dataset="data/hybrid.npz", net=ac_tree(dyn_k_cpt=True),
+            tau=AC_TAU),
+        "hybrid-cr-dynkcpt": Ns(
+            dataset="data/hybrid.npz", net=cr_chain(dyn_k_cpt=True),
+            tau=CR_TAU),
+        "hybrid-cr-tree-dynkcpt": Ns(
+            dataset="data/hybrid.npz", net=cr_tree(dyn_k_cpt=True),
+            tau=CR_TAU),
+        "synth-ac-dynkcpt": Ns(
+            dataset="data/synth.npz", net=ac_chain(dyn_k_cpt=True),
+            tau=AC_TAU),
+        "synth-ac-tree-dynkcpt": Ns(
+            dataset="data/synth.npz", net=ac_tree(dyn_k_cpt=True),
+            tau=AC_TAU),
+        "synth-cr-dynkcpt": Ns(
+            dataset="data/synth.npz", net=cr_chain(dyn_k_cpt=True),
+            tau=CR_TAU),
+        # Price-insensitivity probes of the adaptive critic: a larger
+        # price feature (α_cpt) and the actor's hotter τ schedule.
+        "synth-cr-dynkcpt-acpt1e9": Ns(
+            dataset="data/synth.npz",
+            net=cr_chain(dyn_k_cpt=True, α_cpt=1e9), tau=CR_TAU),
+        "synth-cr-dynkcpt-tauhot": Ns(
+            dataset="data/synth.npz", net=cr_chain(dyn_k_cpt=True),
+            tau=AC_TAU),
+        "hybrid-cr-dynkcpt-acpt1e9": Ns(
+            dataset="data/hybrid.npz",
+            net=cr_chain(dyn_k_cpt=True, α_cpt=1e9), tau=CR_TAU),
     }

@@ -1,15 +1,21 @@
 """Routed-inference benchmark: images/sec and mean realized ops per example
 (counterpart of `scripts/infer-bench`).
 
-Loads a trained chain-net checkpoint (or builds the flagship actor chain
-fresh from a seed) and measures dense evaluation (capacity 1.0: every
-example runs until its router exits it, with batch-wide buffers) and routed
-inference at the given or calibrated capacities. Each mode is timed over
+Loads a trained checkpoint, chain or tree (a `.npy` file, or a compact
+archive directory such as results/nets/hybrid-ac-tree-dynkcpt/net.npy.cz),
+or builds the flagship actor chain fresh from a seed, and measures dense
+evaluation (capacity 1.0: every example runs until its router exits it,
+with batch-wide buffers) and routed inference at the given or calibrated
+capacities. Each mode is timed over
 --n-windows windows of --n-batches batches; `value` is the median of the
 windows' rates and `window_values` holds each. Prints one JSON line per
-mode. Runs on CUDA unless --device cpu is given.
+mode. A dyn_k_cpt net (the adaptive registry's) is served at the price
+--k-cpt. Runs on CUDA unless --device cpu is given.
 
     python -m mpnn_tpu_torch.infer_bench --checkpoint results/nets/hybrid-ac/0004.npy
+    python -m mpnn_tpu_torch.infer_bench \
+        --checkpoint results/nets/hybrid-ac-tree-dynkcpt/net.npy.cz \
+        --k-cpt 1.6e-8
 """
 
 import json
@@ -24,7 +30,9 @@ import torch
 def main(argv=None):
     parser = ArgumentParser(description=__doc__)
     parser.add_argument("--checkpoint", default=None,
-                        help="nets/<expt>/<i>.npy chain-net checkpoint")
+                        help="nets/<expt>/<i>.npy or net.npy checkpoint "
+                             "of a chain or tree, or a compact archive "
+                             "directory")
     parser.add_argument("--batch-size", type=int, default=1024)
     parser.add_argument("--capacity", type=float, default=1.0)
     parser.add_argument("--calibrate", action="store_true",
@@ -51,17 +59,10 @@ def main(argv=None):
                         help="torch device (default cuda; cpu for tests)")
     args = parser.parse_args(argv)
 
-    from . import resolve_device, synchronize
+    from . import set_up_device, synchronize
     from .models.infer import calibrate_capacities, make_routed_infer_fn
-    from .ops import config
 
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # fp32 means fp32: no TF32 in cuDNN convs or cuBLAS matmuls.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    config.set_compute_dtype(torch.bfloat16 if args.precision == "bf16"
-                             else None)
+    device = set_up_device(args.device, args.precision)
 
     if args.checkpoint:
         from .utils.serdes import read_net

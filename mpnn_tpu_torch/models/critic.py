@@ -77,6 +77,7 @@ class CriticNet(DynRoutedMixin, Net):
                     for i, s in enumerate(node.sinks))
 
         visit(self.root)
+        del visit  # break the closure's cycle (see Net.forward)
         return recs
 
     def loss(self, recs, batch_size, ctx):

@@ -205,6 +205,7 @@ def make_routed_infer_fn(net, batch_size, capacities=1.0):
         recurse(net.root, params, state, x0,
                 torch.arange(B, dtype=torch.int64, device=dev),
                 torch.zeros((B,), dtype=torch.float32, device=dev), B)
+        del recurse  # break the closure's cycle (see Net.forward)
         return {"probs": probs[:B], "exit_idx": exit_idx[:B],
                 "ops": ops[:B], "forced": forced}
 

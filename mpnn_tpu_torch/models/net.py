@@ -187,7 +187,13 @@ class Net:
                     fwd(snk, p["sinks"][i], s["sinks"][i], o["x"]))
             return ns
 
-        return recs, fwd(self.root, params, state, x0)
+        new_state = fwd(self.root, params, state, x0)
+        # fwd's closure holds fwd itself and recs: a reference cycle that
+        # would keep every activation (and its autograd graph) alive until
+        # the garbage collector runs. Emptying the cell breaks it, as it
+        # does for the other recursive closures of the port.
+        del fwd
+        return recs, new_state
 
     def loss(self, recs, batch_size, ctx):
         """The scalar training loss from forward records; fills p_tr / p_ev

@@ -44,7 +44,9 @@ def talr_scale_grads(net, grads, p_tr_by_uid, alpha_rtr=1.0, talr=True):
                                                         g["sinks"])],
         }
 
-    return visit(net.root, grads)
+    out = visit(net.root, grads)
+    del visit  # break the closure's cycle (see Net.forward)
+    return out
 
 
 def tree_l2_decay(net, params, grads, p_tr_by_uid):
@@ -84,6 +86,7 @@ def tree_l2_decay(net, params, grads, p_tr_by_uid):
         }
 
     new_grads = node_mod(net.root, params, grads)
+    del node_mod, layer_mod  # break the closures' cycles (see Net.forward)
     return new_grads, torch.as_tensor(value[0], dtype=torch.float32)
 
 

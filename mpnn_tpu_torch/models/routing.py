@@ -80,4 +80,5 @@ def propagate(net, recs, batch_size, tau, eps, mixture=True):
                 visit(s, p_tr * pi_tr[:, i], p_ev * pi_ev[:, i])
 
     visit(net.root, ones, ones)
+    del visit  # break the closure's cycle (see Net.forward)
     return recs

@@ -24,9 +24,13 @@ runs serially, as `mpnn_tpu` does.
     python -m mpnn_tpu_torch.train synth-ac --vmap-sweep --n-iter 40 \\
         --t-log 20 --data-root D --out-root D/nets
 
-Runs on CUDA unless --device cpu is given. Not ported: the `*-tree`
-experiments, meshes (the sweep mesh included) and multi-host runs, the
-adaptive registry, --profile-dir and the TF1 parity modes."""
+Chains and trees (`*-tree`) train the same way, serially and with
+--vmap-sweep. `train_adaptive_experiment` trains one net of the adaptive
+registry (its CLI is `mpnn_tpu_torch.train_adaptive`).
+
+Runs on CUDA unless --device cpu is given. Not ported: meshes (the sweep
+mesh included) and multi-host runs, --profile-dir and the TF1 parity
+modes."""
 
 import json
 import os
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from . import experiments as cfg
-from . import resolve_device, synchronize
+from . import resolve_device, set_up_device, synchronize
 from .data.dataset import Dataset
 from .models.steps import (Schedules, init_training, make_eval_split_fn,
                            make_sweep_eval_split_fn, make_sweep_train_loop,
@@ -46,7 +50,8 @@ from .utils.desc import net_desc, render_net_desc, sweep_net_descs
 from .utils.serdes import atomic_save, read_net, write_net
 from .utils.tree import stack_trees, tree_to_host, unstack_tree
 
-__all__ = ["train_one_net", "train_experiment", "main"]
+__all__ = ["train_one_net", "train_experiment", "train_adaptive_experiment",
+           "main"]
 
 
 def _write_manifest(out_dir, dataset):
@@ -80,12 +85,12 @@ def _tau_at(tau_fn, t, net):
 def _write_epoch_outputs(out_dir, i, t, desc, net, params, state, vel, *,
                          verbose=True):
     """The per-t_log files: `%.4i-stats/%.8i.npy` snapshot,
-    `%.4i-stats.npy` latest, the rendered tree appended to `%.4i-log.txt`,
-    and the `%.4i.npy` checkpoint with the momentum and the step."""
+    `%.4i-stats.npy` latest, the rendered tree appended to
+    `%.4i-log.txt`, and the `%.4i.npy` checkpoint with the momentum and
+    the step."""
     text = render_net_desc(desc, "%s/%.4i.npy — Epoch %i" % (out_dir, i, t))
-    snap_dir = os.path.join(out_dir, "%.4i-stats" % i)
-    os.makedirs(snap_dir, exist_ok=True)
-    atomic_save(os.path.join(snap_dir, "%.8i.npy" % t), desc)
+    os.makedirs(out_dir, exist_ok=True)
+    _save_snapshot(out_dir, i, t, desc)
     atomic_save(os.path.join(out_dir, "%.4i-stats.npy" % i), desc)
     with open(os.path.join(out_dir, "%.4i-log.txt" % i), "a+") as f:
         f.write(text + "\n")
@@ -95,12 +100,20 @@ def _write_epoch_outputs(out_dir, i, t, desc, net, params, state, vel, *,
         print(text)
 
 
+def _save_snapshot(out_dir, i, t, desc):
+    snap_dir = os.path.join(out_dir, "%.4i-stats" % i)
+    os.makedirs(snap_dir, exist_ok=True)
+    atomic_save(os.path.join(snap_dir, "%.8i.npy" % t), desc)
+
+
 def _train_in_spans(trees, train_span, evaluate, write, *, t_start, n_iter,
-                    t_log, device, verbose, tag=""):
+                    t_log, device, verbose, tag="", start_evaluated=True):
     """Train from t_start to n_iter in spans that end on t_log boundaries
     (`trees = train_span(trees, t, n)`, one call a span, no host round
     trip inside it); at every boundary, and at n_iter off one, `desc =
-    evaluate(t, trees)` and `write(t, desc, trees)`. Returns (trees, the
+    evaluate(t, trees)` and `write(t, desc, trees)`. A run resumed at
+    t_start = n_iter is evaluated again unless start_evaluated (its
+    checkpoint was written with its evaluation). Returns (trees, the
     last desc, clock): the host seconds spent training (to the device's
     end of each span), evaluating and writing, the evaluations, and the
     whole run's seconds."""
@@ -119,7 +132,7 @@ def _train_in_spans(trees, train_span, evaluate, write, *, t_start, n_iter,
 
     t0_wall = time.perf_counter()
     t = t_start
-    last_written = t_start if t_start else -1
+    last_written = t_start if t_start and start_evaluated else -1
     while t < n_iter:
         n_chunk = min(t_log - (t % t_log), n_iter - t)
         ts = time.perf_counter()
@@ -140,6 +153,19 @@ def _train_in_spans(trees, train_span, evaluate, write, *, t_start, n_iter,
     return trees, desc, clock
 
 
+def _resume_from(ckpt_path, device, verbose):
+    """(params, state, vel, t) of a checkpoint that carries the momentum
+    and the step, or None."""
+    if ckpt_path is None or not os.path.exists(ckpt_path):
+        return None
+    _, params, state, extra = read_net(ckpt_path, device)
+    if extra is None or "vel" not in extra or "t" not in extra:
+        return None
+    if verbose:
+        print("  [resuming %s at t=%i]" % (ckpt_path, extra["t"]))
+    return params, state, extra["vel"], extra["t"]
+
+
 def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
                   batch_size, out_dir=None, net_index=0, seed=0,
                   verbose=True, resume=False, timings=None):
@@ -153,18 +179,12 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
     evaluating and writing."""
     device = dataset.device
     t_start = 0
-    params = None
     ckpt_path = (os.path.join(out_dir, "%.4i.npy" % net_index)
                  if out_dir is not None else None)
-    if resume and ckpt_path is not None and os.path.exists(ckpt_path):
-        _, params, state, extra = read_net(ckpt_path, device)
-        if extra is not None and "vel" in extra:
-            vel, t_start = extra["vel"], extra["t"]
-            if verbose:
-                print("  [resuming %s at t=%i]" % (ckpt_path, t_start))
-        else:
-            params = None
-    if params is None:
+    found = _resume_from(ckpt_path, device, verbose) if resume else None
+    if found is not None:
+        params, state, vel, t_start = found
+    else:
         params, state, vel = init_training(net, seed, device)
         if out_dir is not None:
             _fresh_log(out_dir, net_index)
@@ -311,10 +331,6 @@ def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
     `sweep_k_cpts` and no `net_indices` trains all its nets at once
     (`_train_sweep`). With a `timings` list, one dict per net (one for the
     whole sweep) is appended (see `train_one_net`)."""
-    if expt_name in cfg.TREE_EXPERIMENTS:
-        raise ValueError(
-            "%r trains dr_tree nets, which are not ported to mpnn_tpu_torch "
-            "yet" % expt_name)
     expt = cfg.make_experiments()[expt_name]
     device = resolve_device(device)
     dataset = Dataset(os.path.join(data_root, expt.dataset), device=device)
@@ -347,6 +363,86 @@ def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
             timings.append(dict(rec, expt=expt_name, net_index=i))
 
 
+def train_adaptive_experiment(expt_name, *, n_iter=None, batch_size=None,
+                              t_log=None, data_root=".", out_root="nets",
+                              seed=0, verbose=True, resume=False,
+                              stats_log=False, device="cuda", timings=None):
+    """Train one net of the adaptive registry on `device`, with k_cpt
+    sampled per example from `experiments.k_cpts` each batch, then
+    evaluate it once per k_cpt (counterpart of `mpnn_tpu`'s
+    `train_adaptive_experiment`). Writes to <out_root>/<expt>/:
+
+    - `net.npy` with the momentum and the step at every t_log boundary
+      before n_iter (resume continues from it), and at n_iter before the
+      evaluations, so a run stopped during them resumes there;
+    - `%.4i-stats.npy` per k_cpt index, at the τ of step n_iter - 1;
+    - with stats_log, the per-k_cpt descriptors at every boundary as well,
+      into `%.4i-stats/%.8i.npy` snapshots (and the latest);
+    - `MANIFEST.json`.
+
+    The draws are `make_train_loop`'s, functions of (seed + 1, t), so a
+    resumed run draws what an uninterrupted run draws. With a `timings`
+    dict, it is filled as `train_one_net` fills it; `evals` counts the
+    per-k_cpt evaluations."""
+    expt = cfg.make_adaptive_experiments()[expt_name]
+    device = resolve_device(device)
+    dataset = Dataset(os.path.join(data_root, expt.dataset), device=device)
+    n_iter = n_iter or cfg.n_iter
+    batch_size = batch_size or cfg.batch_size
+    out_dir = os.path.join(out_root, expt_name)
+    _write_manifest(out_dir, dataset)
+    ckpt_path = os.path.join(out_dir, "net.npy")
+
+    net = expt.net(dataset.x0_shape, dataset.y_shape)
+    schedules = Schedules(lr=cfg.λ_lrn, tau=expt.tau,
+                          k_cpt_sample=cfg.k_cpts)
+    found = _resume_from(ckpt_path, device, verbose) if resume else None
+    if found is not None:
+        params, state, vel, t_start = found
+    else:
+        params, state, vel = init_training(net, seed, device)
+        t_start = 0
+    loop = make_train_loop(net, batch_size, schedules)
+    eval_split = make_eval_split_fn(net, batch_size)
+    x0_tr, y_tr, m_sym = dataset.train_arrays
+    done = {"evals": 0, "ckpt_s": 0.0}
+
+    def train_span(trees, t, n):
+        return loop(*trees, t, seed + 1, x0_tr, y_tr, m_sym, n)[:3]
+
+    def evaluate(t, trees):
+        # _train_in_spans evaluates before it writes, and net.npy has to
+        # come first: a run stopped during the evaluations resumes at t.
+        ts = time.perf_counter()
+        write_net(ckpt_path, net, trees[0], trees[1],
+                  extra={"vel": trees[2], "t": t})
+        done["ckpt_s"] += time.perf_counter() - ts
+        if t < n_iter and not stats_log:
+            return []
+        done["evals"] += len(cfg.k_cpts)
+        tau = _tau_at(expt.tau, t - 1, net)
+        return [net_desc(net, dataset, trees[0], trees[1],
+                         batch_size=batch_size, tau=tau, k_cpt=k_cpt,
+                         eval_split=eval_split) for k_cpt in cfg.k_cpts]
+
+    def write(t, descs, trees):
+        for i, desc in enumerate(descs):
+            if stats_log:
+                _save_snapshot(out_dir, i, t, desc)
+            atomic_save(os.path.join(out_dir, "%.4i-stats.npy" % i), desc)
+
+    (params, state, vel), _, clock = _train_in_spans(
+        (params, state, vel), train_span, evaluate, write, t_start=t_start,
+        n_iter=n_iter, t_log=t_log or cfg.t_log, device=device,
+        verbose=verbose, start_evaluated=False)
+    # Count the per-k_cpt evaluations, and net.npy's writes as writing.
+    clock.update(evals=done["evals"],
+                 eval_s=clock["eval_s"] - done["ckpt_s"],
+                 write_s=clock["write_s"] + done["ckpt_s"])
+    _report(clock, t_start, n_iter, batch_size, 1, verbose, timings)
+    return params, state, vel
+
+
 def main(argv=None):
     parser = ArgumentParser(description=__doc__.split("\n\n")[0])
     names = sorted(cfg.make_experiments())
@@ -377,21 +473,11 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu on request)")
     args = parser.parse_args(argv)
-    if args.expt in cfg.TREE_EXPERIMENTS:
-        parser.error("%r trains dr_tree nets, which are not ported to "
-                     "mpnn_tpu_torch yet" % args.expt)
     if args.expt not in names:
         parser.error("unknown experiment %r (choose from %s)"
                      % (args.expt, ", ".join(names)))
-
+    device = set_up_device(args.device, args.precision)
     from .ops import config
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # fp32 means fp32: no TF32 in cuDNN convs or cuBLAS matmuls.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    config.set_compute_dtype(torch.bfloat16 if args.precision == "bf16"
-                             else None)
     config.set_analytic_l2(args.analytic_l2)
     train_experiment(
         args.expt, n_iter=args.n_iter, t_log=args.t_log,

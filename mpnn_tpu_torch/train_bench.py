@@ -18,6 +18,10 @@ from --seed + i, at k_cpts[i]) trained at once by
 the loop for --n-steps steps (one gather, then the steps), and `value` is
 the aggregate rate, N x batch x steps over the window's time.
 
+With --arch tree the net is the 47-stage actor tree
+(`ac_tree(k_cpt=k_cpts[4])`, the `*-tree` experiments' net), in both
+modes.
+
 With --profile DIR it then traces --n-steps more steps with
 torch.profiler, writes the Chrome trace into DIR and prints a second JSON
 line: the device time per step split into the fused_mcm forward, the
@@ -28,6 +32,7 @@ Runs on CUDA unless --device cpu is given.
 
     python -m mpnn_tpu_torch.train_bench --precision bf16
     python -m mpnn_tpu_torch.train_bench --sweep 8 --precision bf16
+    python -m mpnn_tpu_torch.train_bench --arch tree
 """
 
 import json
@@ -45,31 +50,38 @@ _MCM_BACKWARD = ("_FusedMCM", "Backward")
 TOP_KERNELS = 15  # device operations listed by time in the profile line
 
 
-def build(seed=0, device="cuda", checkpoint=None):
-    """(net, params, state, vel) of the flagship actor chain: fresh from
-    `seed`, or read from `checkpoint` with zero velocities."""
+def _ctor(arch):
+    from .experiments import ac_chain, ac_tree
+    return {"chain": ac_chain, "tree": ac_tree}[arch]
+
+
+def build(seed=0, device="cuda", checkpoint=None, arch="chain"):
+    """(net, params, state, vel) of the flagship actor chain (or, with
+    arch="tree", the actor tree): fresh from `seed`, or read from
+    `checkpoint` with zero velocities."""
     from .models.optim import momentum_init
     from .models.steps import init_training
     if checkpoint:
         from .utils.serdes import read_net
         net, params, state, _ = read_net(checkpoint, device)
         return net, params, state, momentum_init(params)
-    from .experiments import ac_chain, k_cpts
-    net = ac_chain(k_cpt=k_cpts[4])((32, 32, 3), (10,))
+    from .experiments import k_cpts
+    net = _ctor(arch)(k_cpt=k_cpts[4])((32, 32, 3), (10,))
     return (net,) + init_training(net, seed, device)
 
 
-def build_sweep(n_nets, seed=0, device="cuda"):
+def build_sweep(n_nets, seed=0, device="cuda", arch="chain"):
     """(net, params_s, state_s, vel_s, k_cpts) of a sweep of n_nets
-    flagship actor chains, member i drawn from seed + i, as `bench.py`
-    builds it: stacked trees and the members' prices on the device."""
-    from .experiments import ac_chain, k_cpts
+    flagship actor chains (or trees), member i drawn from seed + i, as
+    `bench.py` builds it: stacked trees and the members' prices on the
+    device."""
+    from .experiments import k_cpts
     from .models.steps import init_training
     from .utils.tree import stack_trees
     if not 1 <= n_nets <= len(k_cpts):
         raise ValueError("a sweep has 1 to %d nets (got %d)"
                          % (len(k_cpts), n_nets))
-    net = ac_chain(k_cpt=0.0)((32, 32, 3), (10,))
+    net = _ctor(arch)(k_cpt=0.0)((32, 32, 3), (10,))
     members = [init_training(net, seed + i, device) for i in range(n_nets)]
     trees = [stack_trees([m[j] for m in members]) for j in range(3)]
     k_arr = torch.tensor(k_cpts[:n_nets], dtype=torch.float32,
@@ -142,7 +154,9 @@ def step_split(prof, n_steps):
 def main(argv=None):
     parser = ArgumentParser(description=__doc__)
     parser.add_argument("--checkpoint", default=None,
-                        help="nets/<expt>/<i>.npy chain-net checkpoint")
+                        help="nets/<expt>/<i>.npy checkpoint to train on")
+    parser.add_argument("--arch", choices=["chain", "tree"], default="chain",
+                        help="the flagship actor chain or the actor tree")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--batch-size", type=int, default=128)
     parser.add_argument("--n-steps", type=int, default=20,
@@ -161,35 +175,30 @@ def main(argv=None):
                         help="torch device (default cuda; cpu for tests)")
     args = parser.parse_args(argv)
 
-    from . import resolve_device, synchronize
+    from . import set_up_device, synchronize
     from .experiments import λ_lrn, τ_ds
     from .models.steps import (Schedules, make_sweep_train_loop,
                                make_train_step)
-    from .ops import config
     from .ops.kernels import fused_mcm
 
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # fp32 means fp32: no TF32 in cuDNN convs or cuBLAS matmuls.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    config.set_compute_dtype(torch.bfloat16 if args.precision == "bf16"
-                             else None)
+    device = set_up_device(args.device, args.precision)
 
     B = args.batch_size
     sched = Schedules(lr=λ_lrn, tau=τ_ds)
+    what = "" if args.arch == "chain" else "tree, "
     if args.sweep:
         net, params, state, vel, k_arr = build_sweep(args.sweep, args.seed,
-                                                     device)
+                                                     device, args.arch)
         loop = make_sweep_train_loop(net, B, sched)
         n_per_call, n_nets = args.n_steps, args.sweep
-        metric = "train-sweep (%s, %d nets x batch %d)" % (
-            args.precision, n_nets, B)
+        metric = "train-sweep (%s%s, %d nets x batch %d)" % (
+            what, args.precision, n_nets, B)
     else:
-        net, params, state, vel = build(args.seed, device, args.checkpoint)
+        net, params, state, vel = build(args.seed, device, args.checkpoint,
+                                        args.arch)
         step = make_train_step(net, B, sched)
         n_per_call, n_nets = 1, 1
-        metric = "train-step (%s, batch %d)" % (args.precision, B)
+        metric = "train-step (%s%s, batch %d)" % (what, args.precision, B)
     x0_tr, y_tr, m_sym = train_data(net, device, seed=args.seed)
     gen = torch.Generator(device).manual_seed(args.seed)
     t = 0

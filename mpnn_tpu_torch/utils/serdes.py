@@ -18,7 +18,12 @@ A written record holds float32 numpy arrays, plain Python hypers and
 (and numpy alone) reads it. Records are pickles: read only checkpoints
 this project wrote."""
 
+import hashlib
+import io
+import json
 import os
+import pickle
+import zlib
 
 import numpy as np
 import torch
@@ -30,7 +35,7 @@ from ..models import sr as sr_lib
 from .tree import tree_map
 
 __all__ = ["encode_net", "decode_net", "write_net", "read_net",
-           "atomic_save", "from_numpy_tree"]
+           "read_compact", "atomic_save", "from_numpy_tree"]
 
 # Parameter names that are run-time state (BatchNorm running statistics).
 STATE_KEYS = frozenset({"m_avg", "v_avg"})
@@ -204,4 +209,56 @@ def decode_net(record, device="cuda"):
 
 
 def read_net(path, device="cuda"):
+    """(net, params, state, extra) of a `.npy` checkpoint, or of a compact
+    archive directory (`read_compact`)."""
+    if os.path.isdir(path):
+        return decode_net(read_compact(path), device)
     return decode_net(np.load(path, allow_pickle=True)[()], device)
+
+
+class _CompactUnpickler(pickle.Unpickler):
+    """Unpickles a compact archive's record without ml_dtypes: its
+    bfloat16 arrays come back as uint16 arrays of the same bits."""
+
+    def find_class(self, module, name):
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            return np.uint16
+        if module.startswith("numpy._core"):
+            try:
+                return super().find_class(module, name)
+            except ModuleNotFoundError:  # numpy 1.x names it numpy.core
+                module = "numpy.core" + module[len("numpy._core"):]
+        return super().find_class(module, name)
+
+
+def _bf16_bits_to_f32(obj):
+    """Every uint16 array of a record (the bfloat16 bits of a compact
+    archive; records hold no other uint16 arrays) as float32, exactly."""
+    if isinstance(obj, dict):
+        return {k: _bf16_bits_to_f32(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        out = [_bf16_bits_to_f32(v) for v in obj]
+        return out if isinstance(obj, list) else tuple(out)
+    if isinstance(obj, np.ndarray) and obj.dtype == np.uint16:
+        return (obj.astype(np.uint32) << 16).view(np.float32)
+    return obj
+
+
+def read_compact(dirpath):
+    """The record of a compact archive directory (`mpnn_tpu`'s
+    `write_compact`: zlib of the pickled record with its floats cast to
+    bfloat16, split into part-NN files, a MANIFEST.json with the sha256),
+    its floats back in float32, as `mpnn_tpu`'s `read_compact` returns
+    it; decode it with `decode_net`."""
+    with open(os.path.join(dirpath, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    if manifest["format"] != "mpnn-compact-v1":
+        raise ValueError("unknown compact format %r" % manifest["format"])
+    blob = b"".join(open(os.path.join(dirpath, p["name"]), "rb").read()
+                    for p in manifest["parts"])
+    got = hashlib.sha256(blob).hexdigest()
+    if got != manifest["sha256"]:
+        raise IOError("compact archive %s corrupt: sha %s != manifest %s"
+                      % (dirpath, got, manifest["sha256"]))
+    rec = _CompactUnpickler(io.BytesIO(zlib.decompress(blob))).load()
+    return _bf16_bits_to_f32(rec)

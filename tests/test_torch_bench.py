@@ -1,6 +1,8 @@
 """The port's benchmarks on the CPU: infer_bench reports the median of its
-timed windows and each window; kernel_bench's stage shapes and costs are
-the flagship's, and the three versions it times compute one stage."""
+timed windows and each window, and serves the trained adaptive tree;
+train_bench trains the actor tree alone and as a sweep;
+kernel_bench's stage shapes and costs are the flagship's, and the three
+versions it times compute one stage."""
 
 import json
 import statistics
@@ -8,7 +10,7 @@ import statistics
 import torch
 
 from mpnn_tpu_torch import infer_bench, kernel_bench
-from mpnn_tpu_torch.experiments import arch
+from mpnn_tpu_torch.experiments import arch, k_cpts
 
 
 def test_infer_bench_reports_median_of_windows(capsys):
@@ -60,3 +62,54 @@ def test_kernel_bench_timed_versions_compute_one_stage():
         assert torch.equal(o, r)
     for o, b, r in zip(fns["cudnn_conv_sequence_"](), bs, ref):
         torch.testing.assert_close(o + b, r, rtol=1e-6, atol=1e-6)
+
+
+def test_infer_bench_serves_a_tree_checkpoint(capsys, tmp_path):
+    """infer_bench --checkpoint serves a dyn_k_cpt tree checkpoint (the
+    small tree of tests/test_torch_tree.py on 32x32 inputs) at the price
+    --k-cpt, dense and routed, with a forced-exit count per switch."""
+    from mpnn_tpu_torch.ops import layers as T
+    from mpnn_tpu_torch.utils.serdes import write_net
+    from tests.test_torch_tree import build_tree
+    net = build_tree(T, "ac", (32, 32, 3), dyn_k_cpt=True)
+    params, state = net.init(torch.Generator().manual_seed(0), "cpu")
+    path = str(tmp_path / "net.npy")
+    write_net(path, net, params, state)
+    infer_bench.main(["--device", "cpu", "--batch-size", "4",
+                      "--n-batches", "1", "--n-windows", "1",
+                      "--precision", "fp32", "--checkpoint", path,
+                      "--k-cpt", "1.6e-8", "--capacity", "0.5"])
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["metric"].split()[1] for r in recs] == ["(dense,", "(routed,"]
+    for r in recs:
+        assert r["k_cpt"] == 1.6e-8 and r["mean_ops_per_example"] > 0
+        assert len(r["forced_per_switch"]) == 3  # the tree's switches
+
+
+def test_train_bench_tree_alone_and_as_sweep(capsys, monkeypatch):
+    """train_bench --arch tree builds the registry's tree constructor
+    (here the small tree of tests/test_torch_tree.py in its place) alone,
+    at k_cpts[4], and as a sweep of 2."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.ops import layers as T
+    from tests.test_torch_tree import build_tree
+    built = []
+
+    def ctor(arch):
+        def make(**hypers):
+            built.append((arch, hypers))
+            return lambda x0_shape, y_shape: build_tree(
+                T, "ac", x0_shape, y_shape[0], **hypers)
+        return make
+
+    monkeypatch.setattr(train_bench, "_ctor", ctor)
+    for extra, metric, hypers in (
+            ([], "train-step (tree, fp32, batch 2)", {"k_cpt": k_cpts[4]}),
+            (["--sweep", "2"], "train-sweep (tree, fp32, 2 nets x batch 2)",
+             {"k_cpt": 0.0})):
+        train_bench.main(["--device", "cpu", "--batch-size", "2",
+                          "--n-steps", "1", "--n-windows", "1", "--arch",
+                          "tree"] + extra)
+        rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert rec["metric"] == metric and rec["value"] > 0
+        assert built[-1] == ("tree", hypers)

@@ -1,12 +1,14 @@
-"""The port's training CLI against mpnn_tpu's on the CPU: the registry
-holds JAX's chain experiments with the same datasets, schedules and nets;
-for one tiny experiment (the registry monkeypatched to a 3-stage chain on
-16x16 inputs) `python -m mpnn_tpu_torch.train` writes the files JAX's
-`train_experiment` writes, in the same schema; tree experiments and
-unknown names are refused."""
+"""The port's training CLI against mpnn_tpu's on the CPU: both registries
+(train-nets and adaptive) hold JAX's experiments, name for name, with the
+same datasets, schedules and nets; for one tiny experiment (the registry
+monkeypatched to a 3-stage chain on 16x16 inputs) `python -m
+mpnn_tpu_torch.train` writes the files JAX's `train_experiment` writes,
+in the same schema; tree experiments are accepted and unknown names
+refused."""
 
 import json
 import os
+import re
 from types import SimpleNamespace as Ns
 
 import numpy as np
@@ -25,13 +27,16 @@ from tests.test_torch_sr_cr import build_chain
 
 
 def test_registry_matches_jax_chain_entries():
-    """Every chain entry of JAX's registry, and no tree entry: the same
-    dataset, tau schedule, sweep prices and, per net, the same type,
-    hypers and op count at the registry's input shape."""
+    """Every entry of JAX's train-nets registry, chains and trees, in JAX's
+    order: the same dataset, tau schedule, sweep prices and, per net, the
+    same type, hypers and op count at the registry's input shape; and the
+    adaptive registry's names in JAX's order."""
     jreg, treg = jcfg.make_experiments(), tcfg.make_experiments()
-    assert sorted(treg) == sorted(set(jreg) - set(tcfg.TREE_EXPERIMENTS))
-    assert all(k.endswith("-tree") for k in tcfg.TREE_EXPERIMENTS)
-    assert len(treg) == 25
+    assert list(treg) == list(jreg)
+    assert sum(k.endswith("-tree") for k in treg) == 3
+    assert len(treg) == 28
+    assert list(tcfg.make_adaptive_experiments()) == list(
+        jcfg.make_adaptive_experiments())
     assert tcfg.batch_size == jcfg.batch_size == 128
     for name, te in treg.items():
         je = jreg[name]
@@ -124,16 +129,22 @@ def test_cli_writes_jax_files(tmp_path, monkeypatch):
     assert logs[0] == logs[1] and len(logs[0]) > 20
 
 
-def test_cli_refuses_trees_and_unknown_names(capsys):
-    with pytest.raises(SystemExit):
-        ttrain.main(["synth-ac-tree", "--device", "cpu"])
-    assert "dr_tree" in capsys.readouterr().err
+def test_cli_refuses_trees_and_unknown_names(capsys, monkeypatch):
+    """Unknown names are refused; the tree names are listed and reach the
+    trainer."""
     with pytest.raises(SystemExit):
         ttrain.main(["no-such-expt", "--device", "cpu"])
     assert "unknown experiment" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         ttrain.main(["--help"])
-    out = capsys.readouterr().out
-    assert "synth-ac" in out and "-tree" not in out
-    with pytest.raises(ValueError, match="dr_tree"):
-        ttrain.train_experiment("hybrid-ac-tree", device="cpu")
+    # argparse may wrap the list of names after a hyphen.
+    out = re.sub(r"-\s+", "-", capsys.readouterr().out)
+    assert all(name in out for name in ("synth-ac", "synth-ac-tree",
+                                        "synth-cr-tree", "hybrid-ac-tree"))
+    with pytest.raises(KeyError):
+        ttrain.train_experiment("no-such-expt", device="cpu")
+    called = []
+    monkeypatch.setattr(ttrain, "train_experiment",
+                        lambda name, **kw: called.append((name, kw)))
+    ttrain.main(["synth-ac-tree", "--vmap-sweep", "--device", "cpu"])
+    assert called[0][0] == "synth-ac-tree" and called[0][1]["vmap_sweep"]

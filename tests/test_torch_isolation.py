@@ -134,7 +134,9 @@ def test_chip_smoke_refuses_without_gpu():
 
 def test_ignore_lists_keep_served_checkpoint():
     """.gitignore's results/ block and .chiprunignore list the same paths,
-    and neither drops the checkpoint that chip_smoke.py serves."""
+    and neither drops the checkpoints that chip_smoke.py serves: the
+    flagship chain and the adaptive tree's compact archive with the
+    descriptor files of its training."""
     def results_entries(name):
         with open(os.path.join(REPO, name), encoding="utf-8") as f:
             return [ln.strip() for ln in f
@@ -142,7 +144,11 @@ def test_ignore_lists_keep_served_checkpoint():
 
     git, chip = results_entries(".gitignore"), results_entries(".chiprunignore")
     assert git and git == chip
-    served = "results/nets/hybrid-ac/0004.npy"
-    assert os.path.exists(os.path.join(REPO, served))
-    assert not [e for e in chip
-                if served == e or served.startswith(e.rstrip("/") + "/")]
+    tree = "results/nets/hybrid-ac-tree-dynkcpt/"
+    for served in ["results/nets/hybrid-ac/0004.npy",
+                   tree + "net.npy.cz/MANIFEST.json",
+                   tree + "net.npy.cz/part-00", tree + "net.npy.cz/part-01"
+                   ] + [tree + "%.4i-stats.npy" % i for i in range(8)]:
+        assert os.path.exists(os.path.join(REPO, served))
+        assert not [e for e in chip
+                    if served == e or served.startswith(e.rstrip("/") + "/")]
