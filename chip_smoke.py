@@ -42,6 +42,10 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               vmapped call (`ms`, `device_ms`), mcm_ref net after net
               (`plain_*`) and mcm_ref under the same vmap (`library_*`,
               cuDNN's grouped convs), beside the bound of 8 nets' work.
+   kernel_tails -- the same for the tree's tail stages 3-7, every input
+              batched, at 8 x batch 128 (the stacked tails of one tree)
+              (fp32 and bf16) and 64 x batch 128 (8 trees x 8 tails of
+              the sweep with stacked tails; fp32).
 5. serve   -- reads the trained flagship checkpoint onto the GPU and runs
               routed inference (the port's main path) at capacity 1.0 and at
               calibrated capacities: first in fp32, kernel path against the
@@ -103,12 +107,27 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               from seed 0, batch 128): tree_train_fp32_vs_plain holds one
               fp32 step at train_fp32_vs_plain's gates with 96 launches
               per forward; tree_train_fp32 / tree_train_bf16 take 3
-              windows of 5 steps (img/s beside the chain's of this run; 2
-              profiled steps); tree_sweep_train_fp32 holds one step of
+              windows of 5 steps (img/s beside the chain's of this run; 1
+              profiled step); tree_sweep_train_fp32 holds one step of
               synth-ac-tree's 8 trees at the sweep gates (96 net-axis
               launches per sweep forward) and, with tree_sweep_train_bf16,
-              times 3 windows of 3 steps (aggregate img/s).
-7c. tree serving -- the trained adaptive tree
+              times 3 windows of 2 steps (aggregate img/s).
+7c. stacked tails -- ops.config.stacked_tails (`--stacked-tails`): the
+              tree's eight congruent tails as one vmapped template, the
+              trees packed as the loops carry them. tree_stacked_vs_serial
+              holds one fp32 step of the fresh actor tree at batch 128
+              against the serial step, both through the kernel, and
+              against the stacked step through mcm_ref, at
+              train_fp32_vs_plain's gates, with 33 launches per forward
+              (24 of one net, 9 on the net axis); tree_stacked_train_fp32
+              / _bf16 time it as tree_train_* does, beside the serial
+              tree's img/s, operations and idle share of 7b;
+              tree_sweep_stacked holds one step of the 8 trees (each
+              tree's tails a vmap inside the sweep's: 33 net-axis
+              launches per sweep forward, the tails 64 wide) at the sweep
+              gates against mcm_ref, then times 3 windows of 2 steps
+              beside the serial sweep of 7b.
+7d. tree serving -- the trained adaptive tree
               (results/nets/hybrid-ac-tree-dynkcpt/net.npy.cz, its
               committed compact form: bfloat16 weights) serves the test
               split of hybrid.npz, rebuilt at full size (50,000 / 2,000) by
@@ -153,18 +172,22 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
 9. adaptive_cli -- `python -m mpnn_tpu_torch.train_adaptive` in processes
               of its own (ADAPTIVE_RUNS: synth-ac-tree-dynkcpt to 20 with
               t_log 10 and --stats-log, resumed to 30, and
-              synth-cr-dynkcpt to 20): the files, net.npy read back bit
-              for bit with its step, the resume's start, each process's
-              launches (its last line) against per_forward x (steps +
-              evaluations x eval batches), and the tree's descriptor files
-              against net_desc through mcm_ref (1e-4 x max(1, |stat|)).
+              synth-cr-dynkcpt to 20; then the first run again with
+              --stacked-tails into another output root): the files (the
+              stacked run's file set the serial run's), net.npy read back
+              bit for bit with its step, the resume's start, each
+              process's launches and net-axis launches (its last line)
+              against per_forward x (steps + evaluations x eval batches),
+              and the tree's descriptor files, serial and stacked, against
+              net_desc through mcm_ref (1e-4 x max(1, |stat|)).
 
 Then one {"kernels": [...]} line, the kernel (bf16), its fp32 branch
 (launches on the fp32 training main path) and its net axis (with the
 training main paths' launches in `train_launches`, `sweep_launches` and
 the CLI path's in `train_cli_launches`, `train_cli_sweep_launches`; the
-tree paths' in `tree_launches` and `tree_sweep_launches`), and last the
-device record. Any failed
+tree paths' in `tree_launches` and `tree_sweep_launches`; the stacked
+tails' in `tree_stacked_launches` and `tree_sweep_stacked_launches`, the
+tail stages' times in `tail_stages`), and last the device record. Any failed
 phase raises and the script exits non-zero; it also exits non-zero, with no
 result, where CUDA is absent or the port's package is not beside it."""
 
@@ -225,13 +248,26 @@ MARGIN_BF16 = 1e-2  # the margin reported for bf16 kernel vs plain exits
 # fused_mcm launches per forward of the flagship chain (the eight stages'
 # scales) and of the 47-stage tree (fans 1x4 + 2x4 + 4x3, 8 tails x 9).
 PER_FORWARD = {"chain": 20, "tree": 96}
+# The same under ops.config.stacked_tails: (launches, of which net-axis)
+# per forward of one net. The tree's eight tails are one group whose five
+# stages (L = 3, 2, 2, 1, 1) take 9 net-axis launches beside the fans' 24
+# (a chain's groups are leaves only: its 20 stay 20). Under the sweep every
+# launch is on the net axis (8 nets x 8 tails = 64 for the tails).
+STACKED_PER_FORWARD = {"tree": (33, 9)}
+# Tail stages of the tree (experiments.arch[3:]) on the net axis, in the
+# widths and types the stacked paths run them: 8 tails of one tree (fp32
+# and bf16 training), 8 trees x 8 tails of the sweep (fp32).
+TAIL_FIRST_STAGE = 3
+TAIL_NETS = {8: ("fp32", "bf16"), 64: ("fp32",)}
 # Timed windows x steps of the training phases, per architecture: the tree's
 # host-bound step is ~5x the chain's.
 TRAIN_WINDOWS = {"chain": (N_TRAIN_WINDOWS, N_TRAIN_STEPS), "tree": (3, 5)}
-SWEEP_WINDOWS = {"chain": (N_SWEEP_WINDOWS, N_TRAIN_STEPS), "tree": (3, 3)}
+SWEEP_WINDOWS = {"chain": (N_SWEEP_WINDOWS, N_TRAIN_STEPS), "tree": (3, 2)}
 # Steps traced by torch.profiler after the windows: reading a trace back
-# takes ~0.1 ms an event, and a tree step has ~20,000 device operations.
-PROFILE_STEPS = {"chain": 5, "tree": 2}
+# takes ~0.1 ms an event, and a tree step has ~10,000-28,000 device
+# operations (stacked, serial, the sweep), so the seven tree phases that
+# profile trace one step each.
+PROFILE_STEPS = {"chain": 5, "tree": 1}
 # bf16 training against fp32 (one step, gradients over the whole tree):
 # the kernel path's distance may be at most this multiple of mcm_ref's.
 BF16_VS_FP32_FACTOR = 2.0
@@ -438,40 +474,101 @@ def kernel_nets_phase(device):
     net), against mcm_ref on each net's slice; in fp32 each net's outputs
     must equal a single-net launch on its tensors bit for bit."""
     from mpnn_tpu_torch.experiments import arch
-    from mpnn_tpu_torch.kernel_bench import (bound, stage_cost, stage_times,
-                                             sweep_stage_fns,
-                                             sweep_stage_inputs)
-    from mpnn_tpu_torch.ops import config
-    from mpnn_tpu_torch.ops.kernels import fused_mcm, mcm_ref
-
+    from mpnn_tpu_torch.kernel_bench import sweep_stage_inputs
     stages = sweep_stage_inputs(arch, N_NETS, TRAIN_BATCH, 32, seed=1,
                                 device=device)
+    rows = net_axis_rows("kernel_nets", stages, N_NETS, DTYPES)
+    for dt in DTYPES:
+        sel = [r for r in rows if r["dtype"] == dt]
+        phase("kernel_nets", dtype=dt, nets=N_NETS, batch=TRAIN_BATCH,
+              totals=stage_totals(sel, "library_"),
+              stages=[{k: v for k, v in r.items()
+                       if k not in ("dtype", "nets", "batch", "bytes",
+                                    "flops", "max_abs_ref")}
+                      for r in sel])
+    return rows
+
+
+def kernel_tails_phase(device):
+    """The tree's tail stages (experiments.arch[3:]) on the net axis, every
+    input batched, at the training batch: 8 tails of one tree (the
+    stacked tails' launches; fp32 and bf16) and 64 (8 trees x 8 tails,
+    the sweep with stacked tails; fp32), held and timed as kernel_nets
+    holds and times the flagship stages."""
+    from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.kernel_bench import sweep_stage_inputs
     rows = []
-    for dt, torch_dt in DTYPES.items():
+    for n, dtypes in TAIL_NETS.items():
+        stages = sweep_stage_inputs(arch, n, TRAIN_BATCH, 32, seed=1,
+                                    device=device, first=TAIL_FIRST_STAGE)
+        rows += net_axis_rows("kernel_tails", stages, n, dtypes,
+                              TAIL_FIRST_STAGE)
+        del stages
+    for n, dtypes in TAIL_NETS.items():
+        for dt in dtypes:
+            sel = [r for r in rows if r["dtype"] == dt and r["nets"] == n]
+            phase("kernel_tails", dtype=dt, nets=n, batch=TRAIN_BATCH,
+                  totals=stage_totals(sel, "library_"),
+                  stages=[{k: v for k, v in r.items()
+                           if k not in ("dtype", "nets", "batch", "bytes",
+                                        "flops", "max_abs_ref")}
+                          for r in sel])
+    return rows
+
+
+def tail_summary(rows, n_nets, dt):
+    """kernel_tails' stages of one width and dtype, summed: call and
+    device times of the kernel, mcm_ref net after net and mcm_ref under
+    vmap (grouped cuDNN), the bound, the largest error."""
+    sel = [r for r in rows if r["nets"] == n_nets and r["dtype"] == dt]
+    return dict(nets=n_nets, dtype=dt, batch=TRAIN_BATCH,
+                stages=[r["stage"] for r in sel],
+                max_abs_err=max(r["max_abs_err"] for r in sel),
+                **{k: sum(r[k] for r in sel)
+                   for k in ("ms", "plain_ms", "library_ms")},
+                **stage_totals(sel, "library_"))
+
+
+def net_axis_rows(label, stages, n_nets, dtypes, first=0):
+    """Per dtype and stage of `stages` (kernel_bench.sweep_stage_inputs,
+    the first one stage `first`): the stage for n_nets nets through
+    torch.func.vmap of fused_mcm, one net-axis launch per output scale,
+    held against mcm_ref on each net's slice at the kernel phase's
+    tolerances (in fp32 also against float64, and bit for bit against a
+    single-net launch per net), timed (kernel_bench.stage_times of
+    sweep_stage_fns) beside the bound of the n_nets nets' work."""
+    from mpnn_tpu_torch.kernel_bench import (bound, stage_cost, stage_times,
+                                             sweep_stage_fns)
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm, mcm_ref
+    rows = []
+    for dt in dtypes:
+        torch_dt = DTYPES[dt]
         config.set_compute_dtype(torch_dt)
         try:
-            for i, (xs, whs, wvs, bs, n_ops) in enumerate(stages):
+            for i, (xs, whs, wvs, bs, n_ops) in enumerate(stages, first):
                 xin = [x.to(torch_dt) for x in xs]
                 shared = xin[0].dim() == 4
                 n0, m0 = fused_mcm.launches, fused_mcm.net_launches
                 out = sweep_stage_fns(xin, whs, wvs, bs)[""]()
                 torch.cuda.synchronize()
                 check(fused_mcm.launches - n0 == fused_mcm.net_launches - m0
-                      == len(whs), "kernel_nets stage %d %s: %d launches, "
+                      == len(whs), "%s stage %d %s x%d: %d launches, "
                       "expected one net-axis launch per scale (%d)"
-                      % (i, dt, fused_mcm.launches - n0, len(whs)))
+                      % (label, i, dt, n_nets, fused_mcm.launches - n0,
+                         len(whs)))
                 err = scale = single_err = 0.0
                 err64 = plain64 = scale64 = 0.0
                 bit_equal = True
-                for n in range(N_NETS):
+                for n in range(n_nets):
                     xi = xin if shared else [x[n] for x in xin]
                     args = (xi, [w[n] for w in whs], [w[n] for w in wvs],
                             [b[n] for b in bs])
                     ref = mcm_ref(*args)
                     check(all(o.dtype == DTYPES[dt] and o[n].shape == r.shape
                               for o, r in zip(out, ref)),
-                          "kernel_nets stage %d %s: output dtype/shape "
-                          "differs" % (i, dt))
+                          "%s stage %d %s: output dtype/shape differs"
+                          % (label, i, dt))
                     err = max([err] + [float((o[n].float() - r.float())
                                              .abs().max())
                                        for o, r in zip(out, ref)])
@@ -488,18 +585,18 @@ def kernel_nets_phase(device):
                                                    *args)
                         err64, plain64 = max(err64, e64), max(plain64, p64)
                         scale64 = max(scale64, s64)
-                check(err <= TOL[dt] * scale, "kernel_nets stage %d %s: max "
-                      "abs err %g > %g * max|ref| %g"
-                      % (i, dt, err, TOL[dt], scale))
-                check(bit_equal or dt != "fp32", "kernel_nets stage %d fp32: "
-                      "a net's outputs differ from its single-net launch"
-                      % i)
-                check(err64 <= F64_TOL * scale64, "kernel_nets stage %d fp32: "
+                check(err <= TOL[dt] * scale, "%s stage %d %s x%d: max abs "
+                      "err %g > %g * max|ref| %g"
+                      % (label, i, dt, n_nets, err, TOL[dt], scale))
+                check(bit_equal or dt != "fp32", "%s stage %d fp32 x%d: a "
+                      "net's outputs differ from its single-net launch"
+                      % (label, i, n_nets))
+                check(err64 <= F64_TOL * scale64, "%s stage %d fp32 x%d: "
                       "max abs err %g against float64 > %g * max|ref| %g"
-                      % (i, err64, F64_TOL, scale64))
+                      % (label, i, n_nets, err64, F64_TOL, scale64))
                 n_bytes, flops = stage_cost(xin, whs, wvs, bs, n_ops,
-                                            TRAIN_BATCH, dt, N_NETS)
-                row = {"stage": i, "dtype": dt, "nets": N_NETS,
+                                            TRAIN_BATCH, dt, n_nets)
+                row = {"stage": i, "dtype": dt, "nets": n_nets,
                        "batch": TRAIN_BATCH, "input_shared": shared,
                        "c_out": [int(w.shape[-1]) for w in whs],
                        "max_abs_err": err, "max_abs_ref": scale,
@@ -516,14 +613,6 @@ def kernel_nets_phase(device):
                 rows.append(row)
         finally:
             config.set_compute_dtype(None)
-    for dt in DTYPES:
-        sel = [r for r in rows if r["dtype"] == dt]
-        phase("kernel_nets", dtype=dt, nets=N_NETS, batch=TRAIN_BATCH,
-              totals=stage_totals(sel, "library_"),
-              stages=[{k: v for k, v in r.items()
-                       if k not in ("dtype", "nets", "batch", "bytes",
-                                    "flops", "max_abs_ref")}
-                      for r in rows if r["dtype"] == dt])
     return rows
 
 
@@ -1007,18 +1096,22 @@ def train_once(net, params, state, vel, data, stage=None):
                                              False)
     step = make_train_step(net, TRAIN_BATCH, sched)
     params, vel = (tree_map(torch.clone, t) for t in (params, vel))
+    # Under stacked_tails, packed as the training loop carries them.
+    (params, state, vel), unpack = _packing(net, (params, state, vel))
     with mock.patch.object(kernels, "fused_mcm", stage or counter):
-        n0 = counter.launches
+        n0, m0 = counter.launches, counter.net_launches
         gen = torch.Generator(device=data[0].device).manual_seed(0)
         xb, yb, ctx = batch_ctx(0, gen, *data, None)
         loss, _, _, grads = loss_and_grads(params, state, xb, yb, ctx)
-        n1 = counter.launches
+        n1, m1 = counter.launches, counter.net_launches
         gen = torch.Generator(device=data[0].device).manual_seed(0)
         params, state, vel, _ = step(params, state, vel, 0, gen, *data)
         torch.cuda.synchronize()
-        n2 = counter.launches
-    return {"loss": float(loss), "grads": grads, "params": params,
-            "state": state, "launches": (n1 - n0, n2 - n1)}
+        n2, m2 = counter.launches, counter.net_launches
+    return {"loss": float(loss), "grads": unpack(grads),
+            "params": unpack(params), "state": unpack(state),
+            "launches": (n1 - n0, n2 - n1),
+            "net_launches": (m1 - m0, m2 - m1)}
 
 
 def train_vs_plain_phase(device, arch="chain"):
@@ -1038,27 +1131,13 @@ def train_vs_plain_phase(device, arch="chain"):
           "train %s: kernel launches per forward %s, expected %d (plain "
           "path %s)" % (arch, k["launches"], PER_FORWARD[arch],
                         r["launches"]))
-    loss_err = abs(k["loss"] - r["loss"]) / abs(r["loss"])
     zero = zero_grad_paths(net)
-    errs = {"gradient": tree_errs(k["grads"], r["grads"], zero),
-            "parameter": tree_errs(k["params"], r["params"], zero),
-            "BatchNorm statistic": tree_errs(k["state"], r["state"])}
+    loss_err, errs = step_gates("train", k, r, zero)
     # Not a gate: the same comparison for a float64 stage, which rounds
     # differently from the plain path without being wrong.
     baseline = {"loss_rel_err": abs(f64["loss"] - r["loss"]) / abs(r["loss"]),
                 "gradient": tree_errs(f64["grads"], r["grads"], zero),
                 "parameter": tree_errs(f64["params"], r["params"], zero)}
-    check(loss_err <= TRAIN_TOL["loss"], "train: loss %g vs %g"
-          % (k["loss"], r["loss"]))
-    check(errs["BatchNorm statistic"]["leaf"] <= TRAIN_TOL["state"],
-          "train: BatchNorm statistic error %g > %g"
-          % (errs["BatchNorm statistic"]["leaf"], TRAIN_TOL["state"]))
-    for name in ("gradient", "parameter"):
-        for key in ("tree", "leaf", "zero_grad"):
-            check(errs[name][key] <= TRAIN_TOL[key], "train: %s %s error "
-                  "%g > %g (worst leaf %s)" % (name, key, errs[name][key],
-                                               TRAIN_TOL[key],
-                                               errs[name]["worst_leaf"]))
     return {"arch": arch, "batch": TRAIN_BATCH, "loss": k["loss"],
             "loss_plain": r["loss"],
             "loss_rel_err": loss_err, "errors": errs, "tolerances": TRAIN_TOL,
@@ -1067,12 +1146,80 @@ def train_vs_plain_phase(device, arch="chain"):
             "launches_per_forward": per_fwd}
 
 
-def train_phase(device, precision, arch="chain"):
+def step_gates(label, k, r, zero):
+    """One step `k` held against the same step `r` (train_once records):
+    the loss within TRAIN_TOL["loss"], the BatchNorm statistics per leaf,
+    the gradients and parameters over the tree, per leaf and at the
+    zero-gradient biases. Returns (loss error, errors)."""
+    loss_err = abs(k["loss"] - r["loss"]) / abs(r["loss"])
+    errs = {"gradient": tree_errs(k["grads"], r["grads"], zero),
+            "parameter": tree_errs(k["params"], r["params"], zero),
+            "BatchNorm statistic": tree_errs(k["state"], r["state"])}
+    check(loss_err <= TRAIN_TOL["loss"], "%s: loss %g vs %g"
+          % (label, k["loss"], r["loss"]))
+    check(errs["BatchNorm statistic"]["leaf"] <= TRAIN_TOL["state"],
+          "%s: BatchNorm statistic error %g > %g"
+          % (label, errs["BatchNorm statistic"]["leaf"], TRAIN_TOL["state"]))
+    for name in ("gradient", "parameter"):
+        for key in ("tree", "leaf", "zero_grad"):
+            check(errs[name][key] <= TRAIN_TOL[key], "%s: %s %s error "
+                  "%g > %g (worst leaf %s)" % (label, name, key,
+                                               errs[name][key],
+                                               TRAIN_TOL[key],
+                                               errs[name]["worst_leaf"]))
+    return loss_err, errs
+
+
+def tree_stacked_vs_serial_phase(device):
+    """One fp32 step of the fresh actor tree at the training batch with
+    stacked tails (packed, as the loop carries them) through the kernel,
+    against the serial step through the kernel and against the stacked
+    step through mcm_ref, at train_fp32_vs_plain's gates; 33 launches per
+    stacked forward, 9 of them on the net axis."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.ops import config
+    config.set_compute_dtype(None)
+    net, params, state, vel = train_bench.build(0, device, arch="tree")
+    data = train_bench.train_data(net, device)
+    serial = train_once(net, params, state, vel, data)
+    config.set_stacked_tails(True)
+    try:
+        k = train_once(net, params, state, vel, data)
+        r = train_once(net, params, state, vel, data, _plain_stage)
+        per_fwd = (mcm_launches_per_forward(net),
+                   mcm_launches_per_forward(net, net_axis_only=True))
+    finally:
+        config.set_stacked_tails(False)
+    n, m = STACKED_PER_FORWARD["tree"]
+    check(per_fwd == (n, m) and k["launches"] == (n, n)
+          and k["net_launches"] == (m, m) and r["launches"] == (0, 0)
+          and serial["launches"] == (PER_FORWARD["tree"],) * 2
+          and serial["net_launches"] == (0, 0),
+          "tree stacked: launches per forward %s (net axis %s), expected "
+          "%d (%d); plain %s; serial %s" % (
+              k["launches"], k["net_launches"], n, m, r["launches"],
+              serial["launches"]))
+    zero = zero_grad_paths(net)
+    loss_err, errs = step_gates("tree stacked vs serial", k, serial, zero)
+    plain_err, plain_errs = step_gates("tree stacked kernel vs plain", k, r,
+                                       zero)
+    return {"arch": "tree", "batch": TRAIN_BATCH, "loss": k["loss"],
+            "loss_serial": serial["loss"], "loss_plain": r["loss"],
+            "loss_rel_err": loss_err, "errors": errs,
+            "vs_plain": {"loss_rel_err": plain_err, "errors": plain_errs},
+            "tolerances": TRAIN_TOL, "groups": [
+                [len(g["members"]), len(g["preorders"][0])]
+                for g in net._stack_plan],
+            "launches_per_forward": n, "net_launches_per_forward": m}
+
+
+def train_phase(device, precision, arch="chain", stacked=False):
     """The training main path in one precision, of the flagship actor chain
     or (arch="tree") the actor tree: a warm-up step and timed windows
     (TRAIN_WINDOWS), the kernel's count from 0; then PROFILE_STEPS steps
     under torch.profiler for the device's time, operations and idle share
-    per step."""
+    per step. With stacked, under stacked_tails, the trees packed once
+    before the warm-up as the training loop carries them."""
     from mpnn_tpu_torch import train_bench
     from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
     from mpnn_tpu_torch.models.steps import Schedules, make_train_step
@@ -1080,6 +1227,7 @@ def train_phase(device, precision, arch="chain"):
     from mpnn_tpu_torch.ops.kernels import fused_mcm
     n_windows, n_window_steps = TRAIN_WINDOWS[arch]
     config.set_compute_dtype(DTYPES[precision])
+    config.set_stacked_tails(stacked)
     try:
         net, params, state, vel = train_bench.build(0, device, arch=arch)
         data = train_bench.train_data(net, device)
@@ -1087,12 +1235,15 @@ def train_phase(device, precision, arch="chain"):
         if precision == "bf16":
             r = train_once(net, params, state, vel, data, _plain_stage)
             extra["bf16_first_loss_plain"] = r["loss"]
+        (params, state, vel), _ = _packing(net, (params, state, vel))
         step = make_train_step(net, TRAIN_BATCH,
                                Schedules(lr=λ_lrn, tau=τ_ds))
         gen = torch.Generator(device=device).manual_seed(0)
-        # The main path: the kernel's count starts from 0 here and is read
-        # just after the last step.
-        fused_mcm.launches = 0
+        per_fwd = (mcm_launches_per_forward(net),
+                   mcm_launches_per_forward(net, net_axis_only=True))
+        # The main path: the kernel's counts start from 0 here and are
+        # read just after the last step.
+        fused_mcm.launches = fused_mcm.net_launches = 0
         params, state, vel, c = step(params, state, vel, 0, gen, *data)
         loss_first, t = float(c), 0
         rates, losses = [], []
@@ -1107,7 +1258,7 @@ def train_phase(device, precision, arch="chain"):
             rates.append(n_window_steps * TRAIN_BATCH
                          / (time.perf_counter() - t0))
             losses.append(float(c))
-        launches = fused_mcm.launches
+        launches, net_launches = fused_mcm.launches, fused_mcm.net_launches
 
         def more(params, state, vel, t):
             for _ in range(PROFILE_STEPS[arch]):
@@ -1118,16 +1269,24 @@ def train_phase(device, precision, arch="chain"):
                                 PROFILE_STEPS[arch])
     finally:
         config.set_compute_dtype(None)
+        config.set_stacked_tails(False)
     check(all(np.isfinite(losses)) and np.isfinite(loss_first),
           "train %s %s: loss not finite: %s" % (arch, precision, losses))
     n_steps = 1 + n_windows * n_window_steps
-    per_fwd = mcm_launches_per_forward(net)
-    check(per_fwd == PER_FORWARD[arch] and launches == per_fwd * n_steps,
-          "train %s %s: %d launches in %d steps, expected %d a step"
-          % (arch, precision, launches, n_steps, PER_FORWARD[arch]))
+    expect = (STACKED_PER_FORWARD[arch] if stacked
+              else (PER_FORWARD[arch], 0))
+    check(per_fwd == expect and (launches, net_launches) == (
+        expect[0] * n_steps, expect[1] * n_steps),
+          "train %s %s%s: %d launches (%d of the net axis) in %d steps, "
+          "expected %s a step" % (arch, precision,
+                                  " stacked" if stacked else "", launches,
+                                  net_launches, n_steps, expect))
     if precision == "bf16":
         extra["bf16_first_loss_kernel"] = loss_first
-    label = "" if arch == "chain" else "tree, "
+    if stacked:
+        extra.update(stacked_tails=True, fused_mcm_net_launches=net_launches)
+    label = ("" if arch == "chain" else "tree, ") + (
+        "stacked tails, " if stacked else "")
     return {"arch": arch, "batch": TRAIN_BATCH,
             "metric": "train-step (%s%s, batch %d)"
             % (label, precision, TRAIN_BATCH),
@@ -1174,49 +1333,63 @@ def sweep_once(net, trees, k_cpts, data, stage=None):
     step = _sweep_step_body(net, TRAIN_BATCH, Schedules(lr=λ_lrn, tau=τ_ds))
     params, state, vel = trees
     params, vel = (tree_map(torch.clone, t) for t in (params, vel))
+    # Under stacked_tails, packed after the nets' axis as the loop does.
+    (params, state, vel), unpack = _packing(net, (params, state, vel), 1)
     x0, y, m_sym = data
     dev = x0.device
     with mock.patch.object(kernels, "fused_mcm", stage or counter):
         xb, yb = sampled_batch(torch.Generator(dev).manual_seed(0), x0, y,
                                TRAIN_BATCH)
-        n0 = counter.launches
+        n0, m0 = counter.launches, counter.net_launches
         xa, ya = augment_presampled(torch.Generator(dev).manual_seed(1), xb,
                                     yb, m_sym)
         grads, (loss, _) = loss_and_grads(params, state, k_cpts, xa, ya,
                                           τ_ds(0))
-        n1 = counter.launches
+        n1, m1 = counter.launches, counter.net_launches
         params, state, vel, _ = step(params, state, vel, 0,
                                      torch.Generator(dev).manual_seed(1), xb,
                                      yb, m_sym, k_cpts)
         torch.cuda.synchronize()
-        n2 = counter.launches
-    return {"loss": loss.tolist(), "grads": grads, "params": params,
-            "state": state, "launches": (n1 - n0, n2 - n1)}
+        n2, m2 = counter.launches, counter.net_launches
+    return {"loss": loss.tolist(), "grads": unpack(grads),
+            "params": unpack(params), "state": unpack(state),
+            "launches": (n1 - n0, n2 - n1),
+            "net_launches": (m1 - m0, m2 - m1)}
 
 
-def sweep_vs_plain_phase(device, arch="chain"):
+def sweep_vs_plain_phase(device, arch="chain", stacked=False):
     """One fp32 step of the 8-net sweep of flagship actor chains (or trees)
     through the kernel's net axis against the same step through mcm_ref,
     at the gates of train_fp32_vs_plain over the sweep's stacked trees
     (the losses per member); the worst member's errors and, for the chain,
-    the same comparison for a float64 stage are printed beside them."""
+    the same comparison for a float64 stage are printed beside them. With
+    stacked, under stacked_tails (each tree's tails a vmap inside the
+    sweep's, every launch on the net axis)."""
     from mpnn_tpu_torch import train_bench
     from mpnn_tpu_torch.ops import config
     from mpnn_tpu_torch.utils.tree import unstack_tree
     config.set_compute_dtype(None)
-    net, params, state, vel, k_cpts = train_bench.build_sweep(
-        N_NETS, 0, device, arch)
-    data = train_bench.train_data(net, device)
-    k = sweep_once(net, (params, state, vel), k_cpts, data)
-    r = sweep_once(net, (params, state, vel), k_cpts, data, _plain_stage)
-    f64 = (sweep_once(net, (params, state, vel), k_cpts, data,
-                      _float64_stage) if arch == "chain" else None)
-    per_fwd = mcm_launches_per_forward(net)
-    check(per_fwd == PER_FORWARD[arch] and k["launches"] == (per_fwd, per_fwd)
+    config.set_stacked_tails(stacked)
+    try:
+        net, params, state, vel, k_cpts = train_bench.build_sweep(
+            N_NETS, 0, device, arch)
+        data = train_bench.train_data(net, device)
+        k = sweep_once(net, (params, state, vel), k_cpts, data)
+        r = sweep_once(net, (params, state, vel), k_cpts, data, _plain_stage)
+        f64 = (sweep_once(net, (params, state, vel), k_cpts, data,
+                          _float64_stage) if arch == "chain" else None)
+        per_fwd = mcm_launches_per_forward(net)
+    finally:
+        config.set_stacked_tails(False)
+    expect = (STACKED_PER_FORWARD if stacked else PER_FORWARD)[arch]
+    expect = expect[0] if stacked else expect
+    check(per_fwd == expect and k["launches"] == (per_fwd, per_fwd)
+          and k["net_launches"] == k["launches"]
           and r["launches"] == (0, 0),
-          "sweep %s: kernel launches per sweep forward %s, expected %d "
-          "(plain path %s)" % (arch, k["launches"], PER_FORWARD[arch],
-                               r["launches"]))
+          "sweep %s%s: kernel launches per sweep forward %s (net axis %s), "
+          "expected %d (plain path %s)" % (
+              arch, " stacked" if stacked else "", k["launches"],
+              k["net_launches"], expect, r["launches"]))
     zero = zero_grad_paths(net)
     names = {"gradient": "grads", "parameter": "params",
              "BatchNorm statistic": "state"}
@@ -1236,38 +1409,40 @@ def sweep_vs_plain_phase(device, arch="chain"):
         return worst
 
     loss_errs = [abs(a - b) / abs(b) for a, b in zip(k["loss"], r["loss"])]
-    stacked = errs(k, r)
+    all_errs = errs(k, r)
     check(max(loss_errs) <= TRAIN_TOL["loss"], "sweep: losses %s vs %s"
           % (k["loss"], r["loss"]))
-    check(stacked["BatchNorm statistic"]["leaf"] <= TRAIN_TOL["state"],
+    check(all_errs["BatchNorm statistic"]["leaf"] <= TRAIN_TOL["state"],
           "sweep: BatchNorm statistic error %g > %g"
-          % (stacked["BatchNorm statistic"]["leaf"], TRAIN_TOL["state"]))
+          % (all_errs["BatchNorm statistic"]["leaf"], TRAIN_TOL["state"]))
     for name in ("gradient", "parameter"):
         for key in ("tree", "leaf", "zero_grad"):
-            check(stacked[name][key] <= TRAIN_TOL[key], "sweep: %s %s error "
-                  "%g > %g (worst leaf %s)" % (name, key, stacked[name][key],
-                                               TRAIN_TOL[key],
-                                               stacked[name]["worst_leaf"]))
+            check(all_errs[name][key] <= TRAIN_TOL[key], "sweep: %s %s "
+                  "error %g > %g (worst leaf %s)" % (
+                      name, key, all_errs[name][key], TRAIN_TOL[key],
+                      all_errs[name]["worst_leaf"]))
     # Not gates: the member the flips move most, and the same comparisons
     # for a float64 stage, which rounds differently without being wrong.
     out = {"arch": arch, "nets": N_NETS, "batch": TRAIN_BATCH,
            "k_cpts": k_cpts.tolist(), "loss": k["loss"],
            "loss_plain": r["loss"], "loss_rel_err": max(loss_errs),
-           "errors": stacked, "tolerances": TRAIN_TOL,
+           "errors": all_errs, "tolerances": TRAIN_TOL,
            "worst_member": worst_member(k, r),
-           "launches_per_sweep_forward": per_fwd}
+           "launches_per_sweep_forward": per_fwd, "stacked_tails": stacked}
     if f64 is not None:
         out["float64_stage_vs_plain"] = {"errors": errs(f64, r),
                                          "worst_member": worst_member(f64, r)}
     return out
 
 
-def sweep_train_phase(device, precision, single, arch="chain"):
+def sweep_train_phase(device, precision, single, arch="chain",
+                      stacked=False):
     """The sweep's training main path in one precision: N_NETS flagship
     chains (or trees) trained at once by make_sweep_train_loop, a warm-up
     step, then timed windows (SWEEP_WINDOWS) of one call each, the
     kernel's counts from 0; `single` is the same call's single-net
-    record of train_phase."""
+    record of train_phase. With stacked, under stacked_tails (the loop
+    packs each call's trees)."""
     from mpnn_tpu_torch import train_bench
     from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
     from mpnn_tpu_torch.models.steps import Schedules, make_sweep_train_loop
@@ -1275,9 +1450,11 @@ def sweep_train_phase(device, precision, single, arch="chain"):
     from mpnn_tpu_torch.ops.kernels import fused_mcm
     n_windows, n_window_steps = SWEEP_WINDOWS[arch]
     config.set_compute_dtype(DTYPES[precision])
+    config.set_stacked_tails(stacked)
     try:
         net, params, state, vel, k_cpts = train_bench.build_sweep(
             N_NETS, 0, device, arch)
+        per_fwd = mcm_launches_per_forward(net)
         data = train_bench.train_data(net, device)
         loop = make_sweep_train_loop(net, TRAIN_BATCH,
                                      Schedules(lr=λ_lrn, tau=τ_ds))
@@ -1307,17 +1484,21 @@ def sweep_train_phase(device, precision, single, arch="chain"):
                 (params, state, vel, t), n)
     finally:
         config.set_compute_dtype(None)
+        config.set_stacked_tails(False)
     check(all(np.isfinite(v).all() for v in losses + [loss_first]),
           "sweep %s %s: loss not finite: %s" % (arch, precision, losses))
-    per_fwd = mcm_launches_per_forward(net)
     n_steps = 1 + n_windows * n_window_steps
-    check(per_fwd == PER_FORWARD[arch]
+    expect = (STACKED_PER_FORWARD[arch][0] if stacked
+              else PER_FORWARD[arch])
+    check(per_fwd == expect
           and launches == net_launches == per_fwd * n_steps,
-          "sweep %s %s: %d launches (%d of the net axis) in %d steps, "
-          "expected %d a step" % (arch, precision, launches, net_launches,
-                                  n_steps, PER_FORWARD[arch]))
+          "sweep %s %s%s: %d launches (%d of the net axis) in %d steps, "
+          "expected %d a step" % (arch, precision,
+                                  " stacked" if stacked else "", launches,
+                                  net_launches, n_steps, expect))
     value = statistics.median(rates)
-    label = "" if arch == "chain" else "tree, "
+    label = ("" if arch == "chain" else "tree, ") + (
+        "stacked tails, " if stacked else "")
     return {"arch": arch, "nets": N_NETS, "batch_per_net": TRAIN_BATCH,
             "metric": "train-sweep (%s%s, %d nets x batch %d)"
             % (label, precision, N_NETS, TRAIN_BATCH), "value": value,
@@ -1328,7 +1509,8 @@ def sweep_train_phase(device, precision, single, arch="chain"):
             "vs_single_net": value / single["value"],
             "loss_first": loss_first, "loss_window_ends": losses,
             "fused_mcm_launches": launches,
-            "fused_mcm_net_launches": net_launches, "steps": n_steps}
+            "fused_mcm_net_launches": net_launches, "steps": n_steps,
+            "stacked_tails": stacked}
 
 
 def bf16_vs_fp32(run, zero):
@@ -1385,12 +1567,37 @@ def sweep_bf16_vs_fp32(device):
                                  stage), zero_grad_paths(net))
 
 
-def mcm_launches_per_forward(net):
+def mcm_launches_per_forward(net, net_axis_only=False):
     """fused_mcm launches of one forward of `net`: one per output scale of
-    every MultiscaleConvMax that takes the kernel."""
+    every MultiscaleConvMax that takes the kernel; under stacked_tails a
+    stack-plan group's template counts once (one net-axis launch for all
+    its members). With net_axis_only, the groups' launches alone."""
+    from mpnn_tpu_torch.ops import config
     from mpnn_tpu_torch.ops.layers import MultiscaleConvMax
-    return sum(c._L for node in net.layers for c in node.comps
-               if isinstance(c, MultiscaleConvMax) and c._kernel_eligible())
+
+    def launches(nodes):
+        return sum(c._L for node in nodes for c in node.comps
+                   if isinstance(c, MultiscaleConvMax)
+                   and c._kernel_eligible())
+
+    plan = net._stack_plan if config.stacked_tails else []
+    grouped = {id(n) for g in plan for pre in g["preorders"] for n in pre}
+    net_axis = sum(launches(g["preorders"][0]) for g in plan)
+    if net_axis_only:
+        return net_axis
+    return net_axis + launches(n for n in net.layers
+                               if id(n) not in grouped)
+
+
+def _packing(net, trees, axis=0):
+    """`trees` in the packed layout the loops carry when stacked_tails is
+    on (and the net has a plan), else as they are; with the function that
+    brings a tree back to the node layout."""
+    from mpnn_tpu_torch.ops import config
+    if not (config.stacked_tails and net._stack_plan):
+        return trees, lambda t: t
+    return ([net.pack_tree(t, axis) for t in trees],
+            lambda t: net.unpack_tree(t, axis))
 
 
 def _scalar_stats(desc, path=""):
@@ -1658,6 +1865,8 @@ def train_cli_phase(device):
 ADAPTIVE_RUNS = [("synth-ac-tree-dynkcpt", 20, 10, True, False),
                  ("synth-ac-tree-dynkcpt", 30, 10, True, True),
                  ("synth-cr-dynkcpt", 20, None, False, False)]
+# The first run again with --stacked-tails, into an output root of its own.
+ADAPTIVE_STACKED_RUN = ("synth-ac-tree-dynkcpt", 20, 10, True, False)
 DEFAULT_T_LOG = 2500
 
 
@@ -1678,7 +1887,10 @@ def _records_equal(a, b):
 def adaptive_cli_phase(device):
     """The adaptive trainer's CLI, `python -m mpnn_tpu_torch.train_adaptive`,
     as separate processes on the small synthetic archive, fp32, batch 128
-    (ADAPTIVE_RUNS). Gates: the files; net.npy read back by the port and
+    (ADAPTIVE_RUNS, then ADAPTIVE_STACKED_RUN with --stacked-tails into
+    another output root: the first run's file set, and its launches with
+    33 a forward, 9 on the net axis). Gates: the files; net.npy read
+    back by the port and
     written again equals the file bit for bit, with t = n_iter; the resume
     starts where the first run ended; each process's launches (its last
     line) equal per_forward x (steps + evaluations x eval batches), the
@@ -1705,8 +1917,13 @@ def adaptive_cli_phase(device):
         ds = Dataset(os.path.join(d, "data", "synth.npz"), device=device)
         eval_batches = sum(-(-len(x) // TRAIN_BATCH)
                            for x in (ds.x0_tr, ds.x0_ts))
-        out_root = os.path.join(d, "nets")
-        for expt, n_iter, t_log, stats_log, resume in ADAPTIVE_RUNS:
+        roots = {False: os.path.join(d, "nets"),
+                 True: os.path.join(d, "nets-stacked")}
+        file_sets = {}
+        for (expt, n_iter, t_log, stats_log, resume), stacked in [
+                (r, False) for r in ADAPTIVE_RUNS] + [
+                (ADAPTIVE_STACKED_RUN, True)]:
+            out_root = roots[stacked]
             cmd = [sys.executable, "-m", "mpnn_tpu_torch.train_adaptive",
                    expt, "--n-iter", str(n_iter), "--batch-size",
                    str(TRAIN_BATCH), "--data-root", d, "--out-root",
@@ -1714,6 +1931,7 @@ def adaptive_cli_phase(device):
             cmd += ["--t-log", str(t_log)] if t_log else []
             cmd += ["--stats-log"] if stats_log else []
             cmd += ["--resume"] if resume else []
+            cmd += ["--stacked-tails"] if stacked else []
             t = time.perf_counter()
             proc = subprocess.run(cmd, cwd=HERE, capture_output=True,
                                   text=True, timeout=600)
@@ -1729,17 +1947,28 @@ def adaptive_cli_phase(device):
                           if t % chunk == 0] if stats_log else []
             evals = len(k_cpts) * (len(boundaries) + 1)
             net = registry[expt].net(ds.x0_shape, ds.y_shape)
+            config.set_stacked_tails(stacked)
             per_fwd = mcm_launches_per_forward(net)
-            expect = per_fwd * (n_iter - t_start + evals * eval_batches)
+            per_net = mcm_launches_per_forward(net, net_axis_only=True)
+            config.set_stacked_tails(False)
+            forwards = n_iter - t_start + evals * eval_batches
+            expect = per_fwd * forwards
             check(tm["t_start"] == t_start and tm["evals"] == evals
-                  and tm["fused_mcm_launches"] == expect,
+                  and tm["fused_mcm_launches"] == expect
+                  and tm["fused_mcm_net_launches"] == per_net * forwards
+                  and tm["stacked_tails"] == stacked,
                   "adaptive_cli %s: started at %d with %d evaluations and "
-                  "%d launches, expected %d, %d and %d = %d x (%d steps + "
-                  "%d x %d batches)" % (
+                  "%d launches (%d net-axis), expected %d, %d and %d = %d "
+                  "(%d) x (%d steps + %d x %d batches)" % (
                       label, tm["t_start"], tm["evals"],
-                      tm["fused_mcm_launches"], t_start, evals, expect,
-                      per_fwd, n_iter - t_start, evals, eval_batches))
+                      tm["fused_mcm_launches"], tm["fused_mcm_net_launches"],
+                      t_start, evals, expect, per_fwd, per_net,
+                      n_iter - t_start, evals, eval_batches))
             root = os.path.join(out_root, expt)
+            if not resume and (expt, n_iter) == ADAPTIVE_STACKED_RUN[:2]:
+                file_sets[stacked] = sorted(
+                    os.path.relpath(os.path.join(a, f), root)
+                    for a, _, fs in os.walk(root) for f in fs)
             ckpt = os.path.join(root, "net.npy")
             if resume:
                 check("[resuming %s at t=%d]" % (ckpt, t_start)
@@ -1766,6 +1995,7 @@ def adaptive_cli_phase(device):
                 "run": label, "steps": tm["steps"], "evals": evals,
                 "eval_batches": eval_batches,
                 "launches": tm["fused_mcm_launches"],
+                "net_launches": tm["fused_mcm_net_launches"],
                 "launches_per_forward": per_fwd, "wall_s": wall,
                 "train_s": tm["train_s"], "eval_s": tm["eval_s"],
                 "write_s": tm["write_s"], "total_s": tm["total_s"],
@@ -1773,35 +2003,45 @@ def adaptive_cli_phase(device):
                 "train_img_s": imgs / tm["train_s"],
                 "total_img_s": imgs / tm["total_s"]})
 
-        # The tree's final descriptor files (written through the kernel)
-        # against net_desc of its net.npy through mcm_ref.
-        expt = ADAPTIVE_RUNS[1][0]
-        tau_fn = registry[expt].tau
-        net, params, state, extra = read_net(
-            os.path.join(out_root, expt, "net.npy"), device)
-        worst, worst_at = 0.0, None
-        with mock.patch.object(kernels, "fused_mcm", _plain_stage):
-            for i, k_cpt in enumerate(k_cpts):
-                plain = net_desc(net, ds, params, state,
-                                 batch_size=TRAIN_BATCH,
-                                 tau=tau_fn(extra["t"] - 1), k_cpt=k_cpt)
-                written = np.load(os.path.join(out_root, expt,
-                                               "%.4i-stats.npy" % i),
-                                  allow_pickle=True)[()]
-                a, b = _scalar_stats(written), _scalar_stats(plain)
-                check([p for p, _ in a] == [p for p, _ in b],
-                      "adaptive_cli: descriptor schemas differ")
-                for (p, x), (_, y) in zip(a, b):
-                    e = abs(x - y) / max(1.0, abs(y))
-                    if e >= worst:
-                        worst, worst_at = e, "k_cpt %d %s" % (i, p)
-        check(worst <= DESC_TOL, "adaptive_cli: the descriptor files and "
-              "net_desc through mcm_ref differ by %g at %s"
-              % (worst, worst_at))
+        check(file_sets[True] == file_sets[False], "adaptive_cli: "
+              "--stacked-tails wrote %s, the serial run %s"
+              % (file_sets[True], file_sets[False]))
+
+        def desc_vs_plain(root, expt):
+            """The tree's final descriptor files (written through the
+            kernel) against net_desc of its net.npy through mcm_ref,
+            serially: the largest difference and where."""
+            tau_fn = registry[expt].tau
+            net, params, state, extra = read_net(
+                os.path.join(root, expt, "net.npy"), device)
+            worst, worst_at = 0.0, None
+            with mock.patch.object(kernels, "fused_mcm", _plain_stage):
+                for i, k_cpt in enumerate(k_cpts):
+                    plain = net_desc(net, ds, params, state,
+                                     batch_size=TRAIN_BATCH,
+                                     tau=tau_fn(extra["t"] - 1), k_cpt=k_cpt)
+                    written = np.load(os.path.join(root, expt,
+                                                   "%.4i-stats.npy" % i),
+                                      allow_pickle=True)[()]
+                    a, b = _scalar_stats(written), _scalar_stats(plain)
+                    check([p for p, _ in a] == [p for p, _ in b],
+                          "adaptive_cli: descriptor schemas differ")
+                    for (p, x), (_, y) in zip(a, b):
+                        e = abs(x - y) / max(1.0, abs(y))
+                        if e >= worst:
+                            worst, worst_at = e, "k_cpt %d %s" % (i, p)
+            check(worst <= DESC_TOL, "adaptive_cli %s: the descriptor files "
+                  "and net_desc through mcm_ref differ by %g at %s"
+                  % (root, worst, worst_at))
+            return {"max_err": worst, "at": worst_at, "tolerance": DESC_TOL}
+
+        desc = desc_vs_plain(roots[False], ADAPTIVE_RUNS[1][0])
+        desc_stacked = desc_vs_plain(roots[True], ADAPTIVE_STACKED_RUN[0])
     return {"batch": TRAIN_BATCH, "precision": "fp32", "runs": records,
-            "fused_mcm_launches": launches,
-            "desc_kernel_vs_plain": {"max_err": worst, "at": worst_at,
-                                     "tolerance": DESC_TOL}}
+            "fused_mcm_launches": launches, "desc_kernel_vs_plain": desc,
+            "stacked_desc_kernel_vs_plain": desc_stacked,
+            "stacked_file_set": "the serial run's (%d files)"
+                                % len(file_sets[True])}
 
 
 def main():
@@ -1836,6 +2076,7 @@ def main():
     # axis, the stages of a sweep's nets in one launch per scale.
     rows = kernel_phase(device)
     net_rows = kernel_nets_phase(device)
+    tail_rows = kernel_tails_phase(device)
 
     # 5. serve; the bf16 serving inside it is the main path, whose
     # launches are counted from 0.
@@ -1879,7 +2120,32 @@ def main():
           **tree_sweep["fp32"])
     phase("tree_sweep_train_bf16", **tree_sweep["bf16"])
 
-    # 7c. routed serving of the trained adaptive tree (its bf16 serving
+    # 7c. the tree with stacked tails (ops.config.stacked_tails): one fp32
+    # step against the serial step and against mcm_ref, its training main
+    # path in each precision beside the serial tree's of 7b, then the
+    # sweep of 8 trees (its tails a vmap inside the sweep's); each path's
+    # launches counted from 0.
+    phase("tree_stacked_vs_serial", **tree_stacked_vs_serial_phase(device))
+    tree_stacked = {dt: train_phase(device, dt, "tree", stacked=True)
+                    for dt in ("fp32", "bf16")}
+    for dt, rec in tree_stacked.items():
+        serial = tree_train[dt]
+        phase("tree_stacked_train_" + dt, serial_value=serial["value"],
+              serial_window_values=serial["window_values"],
+              serial_profile=serial["profile"],
+              vs_serial=rec["value"] / serial["value"], **rec)
+    stacked_sweep_check = sweep_vs_plain_phase(device, "tree", stacked=True)
+    tree_sweep_stacked = sweep_train_phase(device, "fp32", tree_train["fp32"],
+                                           "tree", stacked=True)
+    phase("tree_sweep_stacked", vs_plain=stacked_sweep_check,
+          serial_sweep_value=tree_sweep["fp32"]["value"],
+          serial_sweep_window_values=tree_sweep["fp32"]["window_values"],
+          serial_sweep_profile=tree_sweep["fp32"]["profile"],
+          vs_serial_sweep=(tree_sweep_stacked["value"]
+                           / tree_sweep["fp32"]["value"]),
+          **tree_sweep_stacked)
+
+    # 7d. routed serving of the trained adaptive tree (its bf16 serving
     # counted from 0), and its descriptors beside its training's files.
     serve_tree, tree = tree_serve_phase(device)
     phase("tree_serve", **serve_tree)
@@ -1997,6 +2263,15 @@ def main():
                                      for r in cli["sweep_runs"]},
         "tree_sweep_launches": {dt: r["fused_mcm_net_launches"]
                                 for dt, r in tree_sweep.items()},
+        "tree_stacked_launches": {
+            dt: {"launches": r["fused_mcm_launches"],
+                 "net_launches": r["fused_mcm_net_launches"],
+                 "steps": r["steps"]} for dt, r in tree_stacked.items()},
+        "tree_sweep_stacked_launches": {
+            "fp32": tree_sweep_stacked["fused_mcm_net_launches"],
+            "steps": tree_sweep_stacked["steps"]},
+        "tail_stages": [tail_summary(tail_rows, n, dt)
+                        for n, dtypes in TAIL_NETS.items() for dt in dtypes],
         "dtype": "bf16",
         "work": "the eight flagship stages for %d nets x batch %d, stage "
                 "0's input shared, one call each" % (N_NETS, TRAIN_BATCH),

@@ -89,21 +89,24 @@ def device_ms(fn):
     return a.elapsed_time(b) / (GRAPH_REPLAYS * GRAPH_CALLS)
 
 
-def stage_inputs(arch, B, x_hw, seed, device, c_in=3):
-    """Per stage of `arch`: (pyramid input, whs, wvs, bs, n_ops) at batch B,
-    from a seeded numpy generator. Stage i's input pyramid is the shape of
-    stage i-1's output."""
+def stage_inputs(arch, B, x_hw, seed, device, c_in=3, first=0):
+    """Per stage of `arch` from stage `first` on: (pyramid input, whs, wvs,
+    bs, n_ops) at batch B, from a seeded numpy generator. Stage i's input
+    pyramid is the shape of stage i-1's output."""
     from .ops.layers import MultiscaleConvMax
     rng = np.random.RandomState(seed)
     shapes = [(x_hw // 2 ** i, x_hw // 2 ** i, c_in)
               for i in range(len(arch[0]))]
     stages = []
-    for n_chan in arch:
+    for i, n_chan in enumerate(arch):
         mcm = MultiscaleConvMax(n_chan=n_chan, supp=3)
         mcm.build(shapes)
         if not mcm._kernel_eligible():
             raise ValueError("stage %s is not kernel-eligible" % n_chan)
         kept = shapes[len(shapes) - len(n_chan):]
+        if i < first:
+            shapes = mcm.out_shape
+            continue
 
         def arr(shape, scale):
             a = (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -119,15 +122,16 @@ def stage_inputs(arch, B, x_hw, seed, device, c_in=3):
     return stages
 
 
-def sweep_stage_inputs(arch, n_nets, B, x_hw, seed, device):
-    """Per stage of `arch`, that stage for n_nets nets: (xs, whs, wvs, bs,
-    n_ops) with net i's tensors those of `stage_inputs` from seed + i,
-    stacked on a leading axis; stage 0's input pyramid (made from the
-    shared batch) is net 0's, shared by every net."""
-    per_net = [stage_inputs(arch, B, x_hw, seed + i, device)
+def sweep_stage_inputs(arch, n_nets, B, x_hw, seed, device, first=0):
+    """Per stage of `arch` from stage `first` on, that stage for n_nets
+    nets: (xs, whs, wvs, bs, n_ops) with net i's tensors those of
+    `stage_inputs` from seed + i, stacked on a leading axis; stage 0's
+    input pyramid (made from the shared batch) is net 0's, shared by
+    every net."""
+    per_net = [stage_inputs(arch, B, x_hw, seed + i, device, first=first)
                for i in range(n_nets)]
     out = []
-    for si, stages in enumerate(zip(*per_net)):
+    for si, stages in enumerate(zip(*per_net), first):
         def stack(k):
             return [torch.stack(ts) for ts in zip(*(st[k] for st in stages))]
         xs = stages[0][0] if si == 0 else stack(0)

@@ -16,12 +16,23 @@ the tile's gather of (seed, t_first), each step's augmentation of
 uninterrupted run draws. `make_eval_split_fn` loops `_eval_batch_fn`
 over a padded split.
 
+Under `ops.config.stacked_tails` the forward runs the net's stack-plan
+groups as vmapped templates (`Net.forward`), in the steps, the loops and
+the evaluators alike. The loops then carry params, state and velocity in
+`Net.pack_tree`'s layout through a span (the members pre-stacked, so no
+step stacks them again), packed at entry and unpacked at exit; the trees
+they take and return, and every tree of the evaluators, checkpoints and
+stats, are in the node layout.
+
 `make_sweep_train_loop` trains a k_cpt sweep of same-architecture nets
 in one step: `torch.func.vmap` of the loss and gradient over stacked
 params, state and k_cpt, with the batch shared (sampled and augmented
 once, outside the vmap), then of TALR and analytic L2 per member, and
 one TF momentum update over the stacked leaves. `make_sweep_eval_split_fn`
-evaluates every member per batch. Sweep meshes are not ported."""
+evaluates every member per batch. Under `stacked_tails` the sweep's loop
+packs with the members after the nets (axis 1), and each stacked group
+runs as a vmap inside the sweep's vmap: both fold into one launch of
+`fused_mcm`'s net axis. Sweep meshes are not ported."""
 
 import numpy as np
 import torch
@@ -126,6 +137,9 @@ def make_train_step(net, batch_size, schedules, r_shift=4):
 
     params and vel are updated in place and returned; state is a new tree
     (BatchNorm running statistics); c_tot is the loss as a device scalar.
+    The trees may be in `Net.pack_tree`'s layout under `stacked_tails`
+    (the loops' carry); in the node layout the forward stacks each
+    group's members itself.
     x0_tr / y_tr / m_sym are the training split on the device, `gen` a
     torch.Generator on the same device, `t` the host step counter of the
     schedules; k_cpt overrides the net's static price."""
@@ -280,17 +294,32 @@ def make_train_loop(net, batch_size, schedules, r_shift=4, sample_tile=256):
     `seed` is an integer. Every `sample_tile` steps one gather pulls the
     tile's batches from the training split (`_chunk_sampler`); each step
     then augments its contiguous slice of it from the generator re-seeded
-    from (seed, t). params and vel are updated in place; the losses stay
-    on the device and the loop makes no host synchronisation."""
+    from (seed, t). The returned trees are the trained ones: under
+    `stacked_tails` the loop trains packed copies (`_packed`), so the
+    arguments may hold the start of the span, and a caller uses what the
+    loop returns. The losses stay on the device and the loop makes no
+    host synchronisation."""
     step = _train_step_body(net, batch_size, schedules, r_shift,
                             presampled=True)
 
     def loop(params, state, vel, t0, seed, x0_tr, y_tr, m_sym, n_steps,
              k_cpt=None):
-        return _run_spans(step, batch_size, sample_tile, (params, state, vel),
-                          t0, seed, x0_tr, y_tr, m_sym, n_steps, k_cpt)
+        return _packed(net, 0, lambda trees: _run_spans(
+            step, batch_size, sample_tile, trees, t0, seed, x0_tr, y_tr,
+            m_sym, n_steps, k_cpt), (params, state, vel))
 
     return loop
+
+
+def _packed(net, axis, run, trees):
+    """run(trees) -> (params, state, vel, losses), with the trees in
+    `Net.pack_tree`'s layout (member axis at `axis`) while it runs when
+    `stacked_tails` is on and the net has a stack plan; the trees go in
+    and come out in the node layout."""
+    if not (ops_config.stacked_tails and net._stack_plan):
+        return run(trees)
+    *out, cs = run(tuple(net.pack_tree(t, axis) for t in trees))
+    return (*(net.unpack_tree(t, axis) for t in out), cs)
 
 
 def make_sweep_train_loop(net, batch_size, schedules, r_shift=4,
@@ -311,14 +340,16 @@ def make_sweep_train_loop(net, batch_size, schedules, r_shift=4,
     member i takes the serial step of net i on it. Every stage of the
     forward is one launch of `fused_mcm`'s net axis for all the nets. One
     TF momentum update covers the stacked leaves (lr and μ are shared).
-    params_s and vel_s are updated in place."""
+    The returned trees are the trained ones, as in `make_train_loop`;
+    under `stacked_tails` the loop packs each group's members after the
+    nets' axis (axis 1)."""
     step = _sweep_step_body(net, batch_size, schedules, r_shift)
 
     def loop(params_s, state_s, vel_s, t0, seed, x0_tr, y_tr, m_sym, n_steps,
              k_cpts):
-        return _run_spans(step, batch_size, sample_tile,
-                          (params_s, state_s, vel_s), t0, seed, x0_tr, y_tr,
-                          m_sym, n_steps, k_cpts)
+        return _packed(net, 1, lambda trees: _run_spans(
+            step, batch_size, sample_tile, trees, t0, seed, x0_tr, y_tr,
+            m_sym, n_steps, k_cpts), (params_s, state_s, vel_s))
 
     return loop
 

@@ -39,3 +39,17 @@ def set_compute_dtype(dtype):
 def cast_compute(t):
     """Cast a tensor to the compute dtype (no-op if unset)."""
     return t if compute_dtype is None else t.to(compute_dtype)
+
+
+# Congruent-subtree stacking inside `Net.forward`: each group of
+# structurally identical subtrees of the build-time stack plan (dr_tree's
+# eight 5-stage tails, dr_chain's congruent LogReg leaves) runs as one
+# `torch.func.vmap` of a template over stacked params, state and inputs,
+# so the tails' stages are one launch of `fused_mcm`'s net axis each.
+# Same math, vmapped. Off by default, as in `mpnn_tpu`.
+stacked_tails = False
+
+
+def set_stacked_tails(flag):
+    global stacked_tails
+    stacked_tails = bool(flag)

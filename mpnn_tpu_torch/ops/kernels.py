@@ -19,12 +19,16 @@ counterpart of `_fused_mcm_bwd`, which takes `jax.vjp` of `mcm_xla`). The
 conv is linear, so this is the exact derivative of the same function.
 
 The stage composes with `torch.func` (`vmap`, `grad`), as the vmapped
-k_cpt sweep (`models.steps.make_sweep_train_loop`) needs. Under `vmap` the
-CUDA kernel's net axis computes all nets in one launch per output scale,
-each input either batched (a per-net stride) or shared by every net
-(stride 0, no copy); on the CPU `mcm_ref` runs on each net's slice. The
-backward under `vmap` takes torch's conv batching rule (a grouped conv),
-the counterpart of XLA's.
+k_cpt sweep (`models.steps.make_sweep_train_loop`) and the stacked
+subtrees of `Net.forward` (`ops.config.stacked_tails`) need. Under `vmap`
+the CUDA kernel's net axis computes all nets in one launch per output
+scale, each input either batched (a per-net stride) or shared by every
+net (stride 0, no copy); on the CPU `mcm_ref` runs on each net's slice.
+Nested vmaps (the stacked tails inside the sweep) fold into that one net
+axis: each level's rule re-enters the Function with the nets counted so
+far, and the next level out multiplies its width in, so 8 nets x 8 tails
+are one launch of 64. The backward under `vmap` takes torch's conv
+batching rule (a grouped conv), the counterpart of XLA's.
 
 `fused_mcm.launches` counts kernel launches (one per output scale, of one
 net or of all nets); `fused_mcm.net_launches` counts those of the net
@@ -86,7 +90,7 @@ def fused_mcm(xs, whs, wvs, bs, supp):
            and len(xs) >= L, "expected L horizontal weights, L-1 vertical "
            "weights, L biases and at least L input scales")
     kept = list(xs[len(xs) - L:])
-    return list(_FusedMCM.apply(L, supp, *kept, *whs, *wvs, *bs))
+    return list(_FusedMCM.apply(L, supp, 0, (), *kept, *whs, *wvs, *bs))
 
 
 def _split(L, tensors):
@@ -95,45 +99,77 @@ def _split(L, tensors):
             list(tensors[2 * L:3 * L - 1]), list(tensors[3 * L - 1:]))
 
 
+def _ref_stage(L, n_nets, batched):
+    """The stage through `mcm_ref` on the flat tensors: of one net, or
+    (n_nets) of every net, `torch.func.vmap` over the batched tensors."""
+    def stage(*tensors):
+        return tuple(mcm_ref(*_split(L, tensors)))
+
+    if not n_nets:
+        return stage
+    return torch.func.vmap(stage, in_dims=tuple(0 if b else None
+                                                for b in batched))
+
+
 class _FusedMCM(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or `mcm_ref` (CPU); under vmap, the
-    kernel's net axis or `mcm_ref` per net. Backward: `torch.func.vjp` of
-    `mcm_ref` on the saved inputs. The lists go in flattened, as `apply`
-    takes tensors only as positional arguments."""
+    """Forward: the kernel (CUDA) or `mcm_ref` (CPU), of one net or, with
+    n_nets > 0, of n_nets nets (the tensors flagged in `batched` carry
+    them on a leading axis; the others are shared). Backward:
+    `torch.func.vjp` of `mcm_ref` on the saved inputs (vmapped over the
+    nets). The lists go in flattened, as `apply` takes tensors only as
+    positional arguments."""
 
     @staticmethod
-    def forward(L, supp, *tensors):
-        return tuple(_forward(*_split(L, tensors), supp))
+    def forward(L, supp, n_nets, batched, *tensors):
+        return tuple(_forward(*_split(L, tensors), supp, n_nets=n_nets,
+                              batched=list(batched) or None))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        L, _, *tensors = inputs
-        ctx.L = L
+        L, _, n_nets, batched, *tensors = inputs
+        ctx.L, ctx.n_nets, ctx.batched = L, n_nets, batched
         ctx.save_for_backward(*tensors)
 
     @staticmethod
-    def vmap(info, in_dims, L, supp, *tensors):
-        dims = in_dims[2:]
-        tensors = [t if d is None else t.movedim(d, 0)
-                   for t, d in zip(tensors, dims)]
-        outs = _forward(*_split(L, tensors), supp, n_nets=info.batch_size,
-                        batched=[d is not None for d in dims])
+    def vmap(info, in_dims, L, supp, n_nets, batched, *tensors):
+        """One vmap level: its width n becomes the net axis (n_nets = 0)
+        or multiplies into it (n_nets > 0, the level outside a vmap that
+        already made one), and the Function is re-entered on the level
+        below, so every level folds into one launch. A tensor batched at
+        only one of the two is expanded over the other."""
+        n, dims = info.batch_size, in_dims[4:]
+        moved, flags = [], []
+        for t, d, b in zip(tensors, dims, batched or [False] * len(dims)):
+            if d is not None:
+                t = t.movedim(d, 0)
+            if n_nets and (d is not None or b):
+                if d is None:
+                    t = t.unsqueeze(0).expand((n,) + t.shape)
+                elif not b:
+                    t = t.unsqueeze(1).expand((n, n_nets) + t.shape[1:])
+                t = t.reshape((n * n_nets,) + t.shape[2:])
+            moved.append(t)
+            flags.append(d is not None or b)
+        outs = _FusedMCM.apply(L, supp, n * max(n_nets, 1), tuple(flags),
+                               *moved)
+        if n_nets:
+            outs = tuple(o.unflatten(0, (n, n_nets)) for o in outs)
         return tuple(outs), (0,) * L
 
     @staticmethod
     def backward(ctx, *gs):
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[4:]
         saved = ctx.saved_tensors
+        stage = _ref_stage(ctx.L, ctx.n_nets, ctx.batched)
 
-        def stage(*wrt):
+        def wrt_needed(*wrt):
             it = iter(wrt)
-            ins = [next(it) if n else t for t, n in zip(saved, need)]
-            return tuple(mcm_ref(*_split(ctx.L, ins)))
+            return stage(*[next(it) if n else t for t, n in zip(saved, need)])
 
-        _, vjp = torch.func.vjp(stage, *[t for t, n in zip(saved, need)
-                                         if n])
+        _, vjp = torch.func.vjp(wrt_needed, *[t for t, n in zip(saved, need)
+                                              if n])
         grads = iter(vjp(gs))
-        return (None, None, *[next(grads) if n else None for n in need])
+        return (None,) * 4 + tuple(next(grads) if n else None for n in need)
 
 
 def _padded_stride(per, esize):

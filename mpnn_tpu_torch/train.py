@@ -28,6 +28,11 @@ Chains and trees (`*-tree`) train the same way, serially and with
 --vmap-sweep. `train_adaptive_experiment` trains one net of the adaptive
 registry (its CLI is `mpnn_tpu_torch.train_adaptive`).
 
+With --stacked-tails each group of congruent subtrees (a tree's eight
+5-stage tails, a chain's congruent leaves) runs as one vmapped template
+(`ops.config.stacked_tails`, off by default as in `mpnn_tpu`); the files
+are those of the serial path.
+
 Runs on CUDA unless --device cpu is given. Not ported: meshes (the sweep
 mesh included) and multi-host runs, --profile-dir and the TF1 parity
 modes."""
@@ -52,6 +57,10 @@ from .utils.tree import stack_trees, tree_to_host, unstack_tree
 
 __all__ = ["train_one_net", "train_experiment", "train_adaptive_experiment",
            "main"]
+
+STACKED_TAILS_HELP = ("run each group of congruent subtrees (a tree's "
+                      "tails) as one vmapped template, its stages one "
+                      "launch of fused_mcm's net axis")
 
 
 def _write_manifest(out_dir, dataset):
@@ -470,6 +479,8 @@ def main(argv=None):
     parser.add_argument("--analytic-l2", action="store_true",
                         help="weight L2 as a closed-form decay gradient "
                              "instead of in-graph reductions")
+    parser.add_argument("--stacked-tails", action="store_true",
+                        help=STACKED_TAILS_HELP)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu on request)")
     args = parser.parse_args(argv)
@@ -479,6 +490,7 @@ def main(argv=None):
     device = set_up_device(args.device, args.precision)
     from .ops import config
     config.set_analytic_l2(args.analytic_l2)
+    config.set_stacked_tails(args.stacked_tails)
     train_experiment(
         args.expt, n_iter=args.n_iter, t_log=args.t_log,
         batch_size=args.batch_size, net_indices=args.net,

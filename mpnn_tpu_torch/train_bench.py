@@ -22,6 +22,12 @@ With --arch tree the net is the 47-stage actor tree
 (`ac_tree(k_cpt=k_cpts[4])`, the `*-tree` experiments' net), in both
 modes.
 
+With --stacked-tails the net's congruent subtrees run as vmapped templates
+(`ops.config.stacked_tails`): the tree's eight tails, each tail stage one
+launch of fused_mcm's net axis. The single-net step then takes its trees
+packed once before the warm-up (`Net.pack_tree`), as the training loop
+carries them; the sweep's loop packs at each call.
+
 With --profile DIR it then traces --n-steps more steps with
 torch.profiler, writes the Chrome trace into DIR and prints a second JSON
 line: the device time per step split into the fused_mcm forward, the
@@ -33,6 +39,7 @@ Runs on CUDA unless --device cpu is given.
     python -m mpnn_tpu_torch.train_bench --precision bf16
     python -m mpnn_tpu_torch.train_bench --sweep 8 --precision bf16
     python -m mpnn_tpu_torch.train_bench --arch tree
+    python -m mpnn_tpu_torch.train_bench --arch tree --stacked-tails
 """
 
 import json
@@ -171,6 +178,9 @@ def main(argv=None):
     parser.add_argument("--sweep", type=int, default=0, metavar="N",
                         help="measure a sweep of N flagship actor chains "
                              "trained at once (aggregate img/s)")
+    parser.add_argument("--stacked-tails", action="store_true",
+                        help="run the congruent subtrees (the tree's "
+                             "tails) as vmapped templates")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for tests)")
     args = parser.parse_args(argv)
@@ -179,13 +189,16 @@ def main(argv=None):
     from .experiments import λ_lrn, τ_ds
     from .models.steps import (Schedules, make_sweep_train_loop,
                                make_train_step)
+    from .ops import config
     from .ops.kernels import fused_mcm
 
     device = set_up_device(args.device, args.precision)
+    config.set_stacked_tails(args.stacked_tails)
 
     B = args.batch_size
     sched = Schedules(lr=λ_lrn, tau=τ_ds)
-    what = "" if args.arch == "chain" else "tree, "
+    what = ("" if args.arch == "chain" else "tree, ") + (
+        "stacked tails, " if args.stacked_tails else "")
     if args.sweep:
         net, params, state, vel, k_arr = build_sweep(args.sweep, args.seed,
                                                      device, args.arch)
@@ -197,6 +210,9 @@ def main(argv=None):
         net, params, state, vel = build(args.seed, device, args.checkpoint,
                                         args.arch)
         step = make_train_step(net, B, sched)
+        if args.stacked_tails and net._stack_plan:
+            params, state, vel = (net.pack_tree(t)
+                                  for t in (params, state, vel))
         n_per_call, n_nets = 1, 1
         metric = "train-step (%s%s, batch %d)" % (what, args.precision, B)
     x0_tr, y_tr, m_sym = train_data(net, device, seed=args.seed)
@@ -215,7 +231,7 @@ def main(argv=None):
     params, state, vel, c = run(params, state, vel)  # warm-up
     t += n_per_call
     loss_first = c.tolist()
-    launches0 = fused_mcm.launches
+    launches0, net_launches0 = fused_mcm.launches, fused_mcm.net_launches
     rates = []
     for _ in range(args.n_windows):
         synchronize(device)
@@ -237,6 +253,9 @@ def main(argv=None):
         "loss_last": c.tolist(),
         "fused_mcm_launches_per_step": (fused_mcm.launches - launches0)
         / n_timed,
+        "fused_mcm_net_launches_per_step": (fused_mcm.net_launches
+                                            - net_launches0) / n_timed,
+        "stacked_tails": args.stacked_tails,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
     }), flush=True)
@@ -253,8 +272,10 @@ def main(argv=None):
             synchronize(device)
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            args.profile, "train_%s%s.json" % (
-                "sweep%d_" % n_nets if args.sweep else "", args.precision)))
+            args.profile, "train_%s%s%s%s.json" % (
+                "sweep%d_" % n_nets if args.sweep else "",
+                "tree_" if args.arch == "tree" else "",
+                "stacked_" if args.stacked_tails else "", args.precision)))
         print(json.dumps({"profile": metric, "steps": args.n_steps,
                           **step_split(prof, args.n_steps)}), flush=True)
 

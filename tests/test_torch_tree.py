@@ -46,8 +46,8 @@ COMPACT = os.path.join(os.path.dirname(os.path.dirname(__file__)), "results",
 
 def build_tree(L, kind, x0_shape=(16, 16, 3), n_cls=10, **hypers):
     """dr_tree's shape at 3 stages: pyr -> fan node (leaf, tail, tail) ->
-    tails of 2 stages (leaf, next) with a leaf at the end; an "ac" or "cr"
-    net with the registry's k_l2."""
+    tails of 2 stages (leaf, next) with a leaf at the end; an "ac", "cr"
+    or "sr" net with the registry's k_l2."""
     def router(n_sinks):
         return L.Chain(name="Router", comps=[
             L.Select(i=-1), L.LinTrans(n_chan=16, k_l2=K_L2), L.BatchNorm(),
@@ -73,7 +73,7 @@ def build_tree(L, kind, x0_shape=(16, 16, 3), n_cls=10, **hypers):
                                                 tail())],
                    comps=[L.ToPyramid(n_scales=3)])
     mod = jmodels if L is J else tmodels
-    cls = {"ac": mod.ActorNet, "cr": mod.CriticNet}[kind]
+    cls = {"ac": mod.ActorNet, "cr": mod.CriticNet, "sr": mod.SRNet}[kind]
     hypers = {"k_cpt": K_CPT, **hypers}
     return cls(x0_shape=x0_shape, y_shape=(n_cls,), root=root, **hypers)
 
