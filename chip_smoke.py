@@ -181,13 +181,55 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               and the tree's descriptor files, serial and stacked, against
               net_desc through mcm_ref (1e-4 x max(1, |stat|)).
 
+10. zoo_layers -- each layer of the rest of the zoo forward and backward
+              on the card against the same layer on the CPU, fp32, batch
+              128 (Conv 3x3 16->32 with and without res, MaxPool supp 3
+              stride 2 in both modes, GlobalMaxPool, MultiscaleLLN on the
+              4-scale pyramid, SquaredError, SuperclassCrossEntropyError
+              with w_cls 10->2, ActivityError): outputs and loss terms
+              within 1e-5 x max|ref|, gradients within 1e-4; Dropout at
+              λ = 0.5 on 1024 x 32 x 32 x 10 elements: the kept share
+              within 0.5% of λ, the same (stream, uid) the same mask, the
+              two members of a stacked group different masks.
+11. tf1_pyramid -- ToPyramid at batch 1024 under pyramid_tf1 on the card
+              equals the CPU's scales and x[:, ::2^k, ::2^k] exactly.
+12. reference_import -- the full-width 8-deep actor chain in the
+              reference's exact schema (tests/tf1_ckpt_gen.py) read by the
+              port's read_net under pyramid_tf1: a batch of 1024 served
+              dense through the kernel against mcm_ref at the serving
+              gates with 20 launches a forward (counted from 0), one step
+              at batch 128 at the step gates, and bf16 dense img/s (5
+              windows of 20 batches).
+13. zoo_train -- the flagship's first three stages as an actor chain that
+              uses every new layer (MultiscaleLLN after ToPyramid, the
+              leaf Select -> Conv -> Rect -> MaxPool -> Dropout(0.5) ->
+              GlobalMaxPool -> LinTrans -> Softmax -> SquaredError at
+              stages 0 and 1, ActivityError and a superclass leaf at stage
+              2): one fp32 step through the kernel against one through
+              mcm_ref with the same Dropout masks, at the step gates with
+              11 launches a forward, serially and with stacked tails (the
+              two zoo leaves one group); remat "full" and "dots" against
+              none, gradients within 1e-5 over the tree, each with its
+              peak device memory.
+14. tf1_cli -- `train synth-ac --net 4 --pyramid-tf1` and `train_adaptive
+              synth-ac-dynkcpt --pyramid-tf1 --maxpool-tf1` to 20 steps
+              in this process on the small archives, fp32, batch 128:
+              the files, and launches (counted from 0 for each) = 20 x
+              (steps + evaluations x eval batches).
+15. prep_files -- real-format fixtures (a scipy .mat of 300 / 50 digits
+              a class, the cifar-10-batches-mat gztar of 300 rows a
+              batch) through the port's prepare_from_files, then `train
+              hybrid-ac --net 4` to 20 steps from the hybrid.npz it wrote,
+              its launches checked the same way; the six phases' seconds.
+
 Then one {"kernels": [...]} line, the kernel (bf16), its fp32 branch
 (launches on the fp32 training main path) and its net axis (with the
 training main paths' launches in `train_launches`, `sweep_launches` and
 the CLI path's in `train_cli_launches`, `train_cli_sweep_launches`; the
 tree paths' in `tree_launches` and `tree_sweep_launches`; the stacked
 tails' in `tree_stacked_launches` and `tree_sweep_stacked_launches`, the
-tail stages' times in `tail_stages`), and last the device record. Any failed
+tail stages' times in `tail_stages`; the paths of phases 12-15 in
+`tf1_launches`), and last the device record. Any failed
 phase raises and the script exits non-zero; it also exits non-zero, with no
 result, where CUDA is absent or the port's package is not beside it."""
 
@@ -2044,6 +2086,501 @@ def adaptive_cli_phase(device):
                                 % len(file_sets[True])}
 
 
+# ---------------------------------------------------------------------------
+# The rest of the layer zoo, the TF1 parity modes, reference records and
+# real-data prep (phases 10-15).
+
+ZOO_TOL = {"forward": 1e-5, "gradient": 1e-4}  # max abs err / max|CPU ref|
+DROPOUT_SHARE_TOL = 0.005  # the kept share within 0.5% of λ
+REMAT_TOL = 1e-5  # ||remat - plain|| / ||plain|| over the gradient tree
+# CIFAR-2's projection of the 10 classes (horse against the rest).
+W_CLS = np.array([[0, 0, 0, 0, 0, 0, 0, 1, 0, 0],
+                  [1, 1, 1, 1, 1, 1, 1, 0, 1, 1]], np.float32).T
+TF1_CLI_STEPS = 20
+
+
+def _reset_modes():
+    """Every global mode of the port off (the CLIs set them in-process)."""
+    from mpnn_tpu_torch.ops import config
+    config.set_compute_dtype(None)
+    config.set_stacked_tails(False)
+    config.set_analytic_l2(False)
+    config.set_pyramid_tf1(False)
+    config.set_maxpool_tf1(False)
+    config.set_remat(None)
+
+
+def _zoo_layer_run(layer, params, x, y, cots, device):
+    """Forward and backward of one layer on `device`: its output, c_err,
+    c_mod and the gradients of sum(out * cot) + sum(c_err) + sum(c_mod)
+    for its params and input, all on the CPU."""
+    from mpnn_tpu_torch.models.net import Ctx
+    p = {k: v.to(device).requires_grad_() for k, v in params.items()}
+    xs = [t.to(device).requires_grad_() for t in
+          (x if isinstance(x, list) else [x])]
+    out, _, aux = layer.apply(p, {}, xs if isinstance(x, list) else xs[0],
+                              None if y is None else y.to(device), Ctx())
+    outs = out if isinstance(out, list) else [out]
+    tot = sum(torch.sum(o * c.to(device)) for o, c in zip(outs, cots))
+    terms = [torch.as_tensor(getattr(aux, f), device=device)
+             for f in ("c_err", "c_mod")]
+    tot = tot + sum(torch.sum(t) for t in terms)
+    grads = torch.autograd.grad(tot, list(p.values()) + xs)
+    return ([o.detach().cpu() for o in outs + terms],
+            [g.cpu() for g in grads])
+
+
+def zoo_layers_phase(device):
+    """Each new layer of the zoo forward and backward on the card against
+    the same layer on the CPU, fp32 (TF32 off), at the flagship's widths,
+    batch 128; then Dropout's law and streams on the card."""
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops import layers as L
+    _reset_modes()
+    rng = np.random.RandomState(0)
+    B = TRAIN_BATCH
+
+    def img(*shape):
+        return torch.as_tensor(rng.rand(B, *shape).astype(np.float32))
+
+    def probs(n):
+        return torch.softmax(torch.as_tensor(
+            rng.standard_normal((B, n)).astype(np.float32)), 1)
+
+    labels = torch.as_tensor(np.eye(10, dtype=np.float32)[
+        rng.randint(0, 10, B)])
+    pyramid = [img(32 >> k, 32 >> k, 3) for k in range(4)]
+    cases = [
+        ("Conv 3x3 16->32", L.Conv(n_chan=32, supp=3, k_l2=1e-4),
+         img(32, 32, 16), labels, False),
+        ("Conv 3x3 16->32 res", L.Conv(n_chan=32, supp=3, k_l2=1e-4,
+                                      res=True), img(32, 32, 16), labels,
+         False),
+        ("MaxPool supp 3 stride 2", L.MaxPool(supp=3, stride=2),
+         img(32, 32, 16), None, False),
+        ("MaxPool supp 3 stride 2, maxpool_tf1",
+         L.MaxPool(supp=3, stride=2), img(32, 32, 16), None, True),
+        ("GlobalMaxPool", L.GlobalMaxPool(), img(32, 32, 16), None, False),
+        ("MultiscaleLLN", L.MultiscaleLLN(), pyramid, None, False),
+        ("SquaredError", L.SquaredError(), probs(10), labels, False),
+        ("SuperclassCrossEntropyError",
+         L.SuperclassCrossEntropyError(w_cls=W_CLS), probs(2), labels,
+         False),
+        ("ActivityError", L.ActivityError(α=1e-3), img(8, 8, 16), labels,
+         False),
+    ]
+    rows = []
+    for label, layer, x, y, tf1 in cases:
+        config.set_maxpool_tf1(tf1)
+        try:
+            shape = ([tuple(t.shape[1:]) for t in x] if isinstance(x, list)
+                     else tuple(x.shape[1:]))
+            layer.build(shape)
+            params = layer.init(torch.Generator().manual_seed(1), shape)
+            out_cpu = layer.apply(params, {}, x, y, _ctx())[0]
+            cots = [torch.as_tensor(rng.standard_normal(tuple(o.shape))
+                                    .astype(np.float32))
+                    for o in (out_cpu if isinstance(out_cpu, list)
+                              else [out_cpu])]
+            ref = _zoo_layer_run(layer, params, x, y, cots, "cpu")
+            got = _zoo_layer_run(layer, params, x, y, cots, device)
+        finally:
+            config.set_maxpool_tf1(False)
+        errs = {}
+        for kind, a, b in (("forward",) + (got[0], ref[0]),
+                           ("gradient",) + (got[1], ref[1])):
+            errs[kind] = max(float((s - r).abs().max())
+                             / max(float(r.abs().max()), 1e-30)
+                             for s, r in zip(a, b) if r.numel()
+                             and float(r.abs().max()) > 0)
+            check(errs[kind] <= ZOO_TOL[kind], "zoo_layers %s: %s error %g "
+                  "> %g x max|ref|" % (label, kind, errs[kind],
+                                       ZOO_TOL[kind]))
+        rows.append({"layer": label, "out_shape": [list(o.shape)
+                                                   for o in got[0][:-2]],
+                     "forward_rel_err": errs["forward"],
+                     "gradient_rel_err": errs["gradient"]})
+    return {"batch": B, "tolerances": ZOO_TOL, "layers": rows,
+            "dropout": dropout_law(device)}
+
+
+def _ctx(**kw):
+    from mpnn_tpu_torch.models.net import Ctx
+    return Ctx(**kw)
+
+
+def dropout_law(device):
+    """Dropout at λ = 0.5 on 1024 x 32 x 32 x 10 elements on the card:
+    the kept share within 0.5% of λ, kept values 1/λ; the same stream and
+    uid draw the same mask and another uid another; the two members of a
+    stacked group with equal params on the same input draw different
+    masks."""
+    from mpnn_tpu_torch.models.sr import SRNet
+    from mpnn_tpu_torch.models.steps import init_training
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops import layers as L
+    lam = 0.5
+    d = L.Dropout(λ=lam)
+    d.build((32, 32, 10))
+    x = torch.ones((BATCH, 32, 32, 10), device=device)
+    stream = L.fold_stream(0, 1)  # (seed, t)
+    outs = []
+    for uid in (7, 7, 8):
+        d._uid = uid
+        outs.append(d.apply({}, {}, x, None, _ctx(rng=stream))[0])
+    kept = outs[0] != 0
+    share = float(kept.float().mean())
+    check(abs(share - lam) <= DROPOUT_SHARE_TOL * lam
+          and bool((outs[0][kept] == 1 / lam).all()),
+          "dropout: kept share %g for λ %g" % (share, lam))
+    check(torch.equal(outs[0], outs[1]) and not torch.equal(outs[0],
+                                                            outs[2]),
+          "dropout: masks are not a function of (stream, uid)")
+
+    def leaf():
+        return L.Chain(name="DropReg", comps=[
+            L.Select(i=-1), L.LinTrans(n_chan=10), L.Dropout(λ=lam),
+            L.Softmax(), L.CrossEntropyError()])
+
+    net = SRNet(x0_shape=(8, 8, 3), y_shape=(10,), root=L.Chain(
+        name="Stem", comps=[L.ToPyramid(n_scales=1)],
+        sinks=(leaf(), leaf())))
+    params, state, _ = init_training(net, 0, device)
+    params["sinks"][1] = params["sinks"][0]
+    config.set_stacked_tails(True)
+    try:
+        recs, _ = net.forward(params, state, torch.ones((64, 8, 8, 3),
+                                                        device=device),
+                              None, _ctx(train=True, rng=stream))
+    finally:
+        config.set_stacked_tails(False)
+    a, b = (recs[l].x for l in net.leaves)
+    check(len(net._stack_plan[0]["members"]) == 2 and not torch.equal(a, b),
+          "dropout: the stacked members drew the same mask")
+    return {"lam": lam, "elements": x.numel(), "kept_share": share,
+            "same_stream_same_mask": True, "members_distinct": True}
+
+
+def tf1_pyramid_phase(device):
+    """ToPyramid at batch 1024 under pyramid_tf1 on the card: the CPU's
+    scales exactly, each x[:, ::2^k, ::2^k]."""
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops import layers as L
+    layer = L.ToPyramid(n_scales=4)
+    layer.build((32, 32, 3))
+    x = torch.as_tensor(np.random.RandomState(3).rand(
+        BATCH, 32, 32, 3).astype(np.float32))
+    config.set_pyramid_tf1(True)
+    try:
+        got = layer.apply({}, {}, x.to(device), None, _ctx())[0]
+        ref = layer.apply({}, {}, x, None, _ctx())[0]
+    finally:
+        config.set_pyramid_tf1(False)
+    for k, (g, r) in enumerate(zip(got, ref)):
+        check(torch.equal(g.cpu(), r) and torch.equal(
+            r, x[:, ::2 ** k, ::2 ** k]),
+              "tf1_pyramid: scale %d differs from the CPU's or the slice"
+              % k)
+    return {"batch": BATCH, "scales": [list(g.shape) for g in got]}
+
+
+def reference_import_phase(device, d):
+    """The full-width 8-deep actor chain in the reference's exact schema
+    (tests/tf1_ckpt_gen.py), read with the port's read_net under
+    pyramid_tf1: a batch of 1024 served dense through the kernel against
+    mcm_ref in fp32 (the serving gates, 20 launches a forward), one
+    training step at batch 128 against mcm_ref (the step gates), and bf16
+    dense serving timed."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.data import synth
+    from mpnn_tpu_torch.models.infer import make_routed_infer_fn
+    from mpnn_tpu_torch.models.optim import momentum_init
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    from mpnn_tpu_torch.utils.serdes import read_net
+    from tests import tf1_ckpt_gen
+    _reset_modes()
+    path = os.path.join(d, "reference.npy")
+    tf1_ckpt_gen.write_reference_checkpoint(path, seed=0)
+    config.set_pyramid_tf1(True)
+    try:
+        net, params, state, extra = read_net(path, device)
+        check(extra is None, "reference record: unexpected extra")
+        data = synth.make_synthetic(n_tr=BATCH, n_ts=BATCH, h=32, w=32,
+                                    c=3, n_cls=10, seed=0)
+        x0 = torch.as_tensor(data["x0_ts"], device=device)
+        k_cpt = net.hypers.k_cpt
+        margins = router_margins(net, params, state, [x0], k_cpt)
+        # This path's launches, counted from 0 and read just after.
+        fused_mcm.launches = 0
+        serve(net, params, state, x0, 1.0)
+        per_fwd = fused_mcm.launches
+        check(per_fwd == PER_FORWARD["chain"], "reference record: %d "
+              "launches a forward, expected %d" % (per_fwd,
+                                                   PER_FORWARD["chain"]))
+        _, served = compare_fp32("reference record", net, params, state,
+                                 [x0], BATCH, 1.0, k_cpt, margins)
+        vel = momentum_init(params)
+        tdata = train_bench.train_data(net, device)
+        k = train_once(net, params, state, vel, tdata)
+        r = train_once(net, params, state, vel, tdata, _plain_stage)
+        check(k["launches"] == (per_fwd, per_fwd) and r["launches"]
+              == (0, 0), "reference record step: launches %s / plain %s"
+              % (k["launches"], r["launches"]))
+        loss_err, errs = step_gates("reference record step", k, r,
+                                    zero_grad_paths(net))
+        config.set_compute_dtype(torch.bfloat16)
+        infer = make_routed_infer_fn(net, BATCH, capacities=1.0)
+        infer(params, state, x0)
+        rates = []
+        for _ in range(N_WINDOWS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(N_SERVE):
+                out = infer(params, state, x0)
+            torch.cuda.synchronize()
+            rates.append(N_SERVE * BATCH / (time.perf_counter() - t))
+        check(np.isfinite(out["probs"].float().cpu().numpy()).all(),
+              "reference record bf16: probs not finite")
+    finally:
+        _reset_modes()
+    return {"record": "tests/tf1_ckpt_gen.generate_record()",
+            "layers": len(list(net.layers)), "launches_per_forward": per_fwd,
+            "serve_fp32_vs_plain": served, "step": {
+                "batch": TRAIN_BATCH, "loss": k["loss"],
+                "loss_plain": r["loss"], "loss_rel_err": loss_err,
+                "errors": errs, "tolerances": TRAIN_TOL},
+            "bf16_dense": {"metric": "routed-inference (dense, bf16, "
+                           "reference record, batch %d)" % BATCH,
+                           "value": statistics.median(rates),
+                           "unit": "images/sec", "window_values": rates,
+                           "window_batches": N_SERVE}}
+
+
+def zoo_net(lam=0.5):
+    """The flagship's first three stages (32x32x3, 10 classes) as an actor
+    chain that uses every new layer: ToPyramid + MultiscaleLLN at the
+    root; at stages 0 and 1 the leaf Select -> Conv -> Rect -> MaxPool ->
+    Dropout -> GlobalMaxPool -> LinTrans -> Softmax -> SquaredError
+    (congruent: one stack-plan group of two), at stage 2 Select ->
+    LinTrans -> ActivityError -> Softmax -> SuperclassCrossEntropyError
+    (w_cls 10 -> 2)."""
+    from mpnn_tpu_torch import experiments as E
+    from mpnn_tpu_torch.models import ActorNet
+    from mpnn_tpu_torch.ops import layers as L
+
+    def leaf():
+        return L.Chain(name="ZooLeaf", comps=[
+            L.Select(i=0), L.Conv(n_chan=16, supp=3, k_l2=E.k_l2, res=True),
+            L.Rect(), L.MaxPool(supp=3, stride=2), L.Dropout(λ=lam),
+            L.GlobalMaxPool(), L.LinTrans(n_chan=10, k_l2=E.k_l2),
+            L.Softmax(), L.SquaredError()])
+
+    root = E.rcm(2, L.Chain(name="SuperLeaf", comps=[
+        L.Select(i=-1), L.LinTrans(n_chan=2, k_l2=E.k_l2),
+        L.ActivityError(α=1e-3), L.Softmax(),
+        L.SuperclassCrossEntropyError(w_cls=W_CLS)]))
+    for i in (1, 0):
+        root = E.rcm(i, leaf(), root)
+    root = L.Chain(name="ToPyramid", sinks=[root], comps=[
+        L.ToPyramid(n_scales=4), L.MultiscaleLLN()])
+    return ActorNet(x0_shape=(32, 32, 3), y_shape=(10,), root=root,
+                    k_cpt=E.k_cpts[4])
+
+
+def zoo_train_phase(device):
+    """One fp32 step of the zoo chain at batch 128 through the kernel
+    against one through mcm_ref (the same Dropout masks: both draw them
+    from the step's generator seed), at the step gates; the same with
+    stacked tails (the two zoo leaves one group); then remat "full" and
+    "dots" against none, with each one's peak device memory."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import (Schedules, _step_pieces,
+                                             init_training)
+    from mpnn_tpu_torch.ops import config
+    _reset_modes()
+    net = zoo_net()
+    params, state, vel = init_training(net, 0, device)
+    data = train_bench.train_data(net, device)
+    per_fwd = mcm_launches_per_forward(net)
+    zero = zero_grad_paths(net)
+    out = {"batch": TRAIN_BATCH, "launches_per_forward": per_fwd,
+           "tolerances": TRAIN_TOL}
+    try:
+        for stacked in (False, True):
+            config.set_stacked_tails(stacked)
+            k = train_once(net, params, state, vel, data)
+            r = train_once(net, params, state, vel, data, _plain_stage)
+            label = "zoo_train%s" % (" stacked" if stacked else "")
+            check(k["launches"] == (per_fwd, per_fwd)
+                  and r["launches"] == (0, 0), "%s: launches %s, expected "
+                  "%d a forward" % (label, k["launches"], per_fwd))
+            loss_err, errs = step_gates(label, k, r, zero)
+            out["stacked" if stacked else "serial"] = {
+                "loss": k["loss"], "loss_plain": r["loss"],
+                "loss_rel_err": loss_err, "errors": errs}
+        check([len(g["members"]) for g in net._stack_plan] == [2],
+              "zoo_train: expected one stack-plan group of two leaves")
+        config.set_stacked_tails(False)
+        batch_ctx, loss_and_grads = _step_pieces(
+            net, TRAIN_BATCH, Schedules(lr=λ_lrn, tau=τ_ds), 4, False)
+        remat = {}
+        for policy in (None, "full", "dots"):
+            config.set_remat(policy)
+            gen = torch.Generator(device=device).manual_seed(0)
+            xb, yb, ctx = batch_ctx(0, gen, *data, None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            loss, _, _, grads = loss_and_grads(params, state, xb, yb, ctx)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            remat[policy] = (float(loss), grads, peak, peak - base)
+        rows = {}
+        for policy in ("full", "dots"):
+            e = tree_errs(remat[policy][1], remat[None][1], zero)
+            check(e["tree"] <= REMAT_TOL, "zoo_train remat %s: gradients "
+                  "%g from none's > %g" % (policy, e["tree"], REMAT_TOL))
+            rows[policy] = {"gradient_rel_err": e["tree"],
+                            "worst_leaf_rel_err": e["leaf"],
+                            "loss": remat[policy][0],
+                            "peak_bytes": remat[policy][2],
+                            "peak_bytes_above_start": remat[policy][3]}
+        rows["none"] = {"loss": remat[None][0],
+                        "peak_bytes": remat[None][2],
+                        "peak_bytes_above_start": remat[None][3]}
+        out["remat"] = rows
+    finally:
+        _reset_modes()
+    return out
+
+
+def _cli_run(main, argv):
+    """main(argv) in this process, stdout captured, the global modes reset
+    after; returns (stdout, its fused_mcm launches, seconds)."""
+    import contextlib
+    import io
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    buf = io.StringIO()
+    t = time.perf_counter()
+    # The path's launches are counted from 0 here and read just after.
+    fused_mcm.launches = fused_mcm.net_launches = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        torch.cuda.synchronize()
+    finally:
+        _reset_modes()
+    return buf.getvalue(), fused_mcm.launches, time.perf_counter() - t
+
+
+def tf1_cli_phase(device, d):
+    """The CLIs with the TF1 modes on the small synthetic archives, fp32,
+    batch 128, to 20 steps: `train synth-ac --net 4 --pyramid-tf1` and
+    `train_adaptive synth-ac-dynkcpt --pyramid-tf1 --maxpool-tf1`. Gates:
+    the files, and launches = 20 x (steps + evaluations x eval batches)."""
+    from mpnn_tpu_torch import train as cli
+    from mpnn_tpu_torch import train_adaptive
+    from mpnn_tpu_torch.data.dataset import Dataset
+    from mpnn_tpu_torch.data.prep import make_synthetic_archives
+    from mpnn_tpu_torch.experiments import k_cpts
+    make_synthetic_archives(os.path.join(d, "data"), small=True)
+    ds = Dataset(os.path.join(d, "data", "synth.npz"), device=device)
+    eval_batches = sum(-(-len(x) // TRAIN_BATCH)
+                       for x in (ds.x0_tr, ds.x0_ts))
+    common = ["--n-iter", str(TF1_CLI_STEPS), "--t-log", str(TF1_CLI_STEPS),
+              "--batch-size", str(TRAIN_BATCH), "--data-root", d,
+              "--out-root", os.path.join(d, "nets"),
+              "--device", str(device)]
+    runs = [("train synth-ac --net 4 --pyramid-tf1", cli.main,
+             ["synth-ac", "--net", "4", "--pyramid-tf1"], 1,
+             ["0004.npy", "0004-stats.npy", "0004-log.txt",
+              "0004-stats/%.8i.npy" % TF1_CLI_STEPS, "MANIFEST.json"]),
+            ("train_adaptive synth-ac-dynkcpt --pyramid-tf1 --maxpool-tf1",
+             train_adaptive.main, ["synth-ac-dynkcpt", "--pyramid-tf1",
+                                   "--maxpool-tf1"], len(k_cpts),
+             ["net.npy", "MANIFEST.json"] + ["%.4i-stats.npy" % i
+                                             for i in range(len(k_cpts))])]
+    rows, total = [], 0
+    for label, main, argv, evals, files in runs:
+        stdout, launches, secs = _cli_run(main, argv + common)
+        expect = PER_FORWARD["chain"] * (TF1_CLI_STEPS
+                                         + evals * eval_batches)
+        out_dir = os.path.join(d, "nets", argv[0])
+        missing = [f for f in files
+                   if not os.path.exists(os.path.join(out_dir, f))]
+        check(not missing and launches == expect, "tf1_cli %s: %d launches "
+              "(expected %d), missing %s" % (label, launches, expect,
+                                             missing))
+        row = {"run": label, "steps": TF1_CLI_STEPS, "evals": evals,
+               "eval_batches": eval_batches, "launches": launches,
+               "seconds": secs}
+        if main is train_adaptive.main:
+            tm = json.loads(stdout.strip().splitlines()[-1])
+            check(tm["fused_mcm_launches"] == launches, "tf1_cli: the "
+                  "adaptive CLI reports %d launches" %
+                  tm["fused_mcm_launches"])
+            row["train_s"] = tm["train_s"]
+        rows.append(row)
+        total += launches
+    return {"runs": rows, "fused_mcm_launches": total}
+
+
+def prep_files_phase(device, d):
+    """Real-format fixtures (a scipy .mat of 300 train / 50 test digits
+    per class, the cifar-10-batches-mat gztar with 300 rows a batch)
+    through the port's prepare_from_files, then `train hybrid-ac --net 4`
+    to 20 steps on the card from the hybrid.npz it wrote."""
+    import tarfile
+    import scipy.io as sio
+    from mpnn_tpu_torch import train as cli
+    from mpnn_tpu_torch.data.dataset import Dataset
+    from mpnn_tpu_torch.data.prep import prepare_from_files
+    rng = np.random.RandomState(0)
+    mat = os.path.join(d, "mnist_all.mat")
+    sio.savemat(mat, {"%s%d" % (s, i): (rng.rand(n, 784) * 255).astype(
+        np.uint8) for i in range(10) for s, n in (("train", 300),
+                                                  ("test", 50))})
+    bdir = os.path.join(d, "cifar-10-batches-mat")
+    os.makedirs(bdir)
+    for name in ["data_batch_%d" % i for i in range(1, 6)] + ["test_batch"]:
+        sio.savemat(os.path.join(bdir, name + ".mat"), {
+            "data": (rng.rand(300, 3072) * 255).astype(np.uint8),
+            "labels": rng.randint(0, 10, (300, 1))})
+    tgz = os.path.join(d, "cifar-10-matlab.tar.gz")
+    with tarfile.open(tgz, "w:gz") as tar:
+        tar.add(bdir, arcname="cifar-10-batches-mat")
+    t = time.perf_counter()
+    names = prepare_from_files(os.path.join(d, "data"), mat, tgz,
+                               verbose=False)
+    prep_s = time.perf_counter() - t
+    ds = Dataset(os.path.join(d, "data", "hybrid.npz"), device=device)
+    check(names == ["cifar-10.npz", "cifar-2.npz", "cifar-5.npz",
+                    "hybrid.npz", "mnist.npz"]
+          and tuple(ds.x0_shape) == (32, 32, 3) and ds.provenance
+          and not ds.provenance["synthetic"], "prep_files: archives %s, "
+          "hybrid %s" % (names, ds.x0_shape))
+    eval_batches = sum(-(-len(x) // TRAIN_BATCH)
+                       for x in (ds.x0_tr, ds.x0_ts))
+    stdout, launches, secs = _cli_run(cli.main, [
+        "hybrid-ac", "--net", "4", "--n-iter", str(TF1_CLI_STEPS),
+        "--t-log", str(TF1_CLI_STEPS), "--batch-size", str(TRAIN_BATCH),
+        "--data-root", d, "--out-root", os.path.join(d, "nets"),
+        "--device", str(device)])
+    expect = PER_FORWARD["chain"] * (TF1_CLI_STEPS + eval_batches)
+    ckpt = os.path.join(d, "nets", "hybrid-ac", "0004.npy")
+    check(launches == expect and os.path.exists(ckpt), "prep_files: %d "
+          "launches (expected %d), checkpoint %s" % (launches, expect,
+                                                     os.path.exists(ckpt)))
+    return {"archives": names, "hybrid_tr": len(ds.x0_tr),
+            "hybrid_ts": len(ds.x0_ts), "prep_s": prep_s,
+            "train": {"run": "train hybrid-ac --net 4",
+                      "steps": TF1_CLI_STEPS, "eval_batches": eval_batches,
+                      "launches": launches, "seconds": secs},
+            "fused_mcm_launches": launches}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2163,6 +2700,26 @@ def main():
     tree_cli = {r["run"]: r["launches"] for r in cli["runs"] + cli[
         "sweep_runs"] if "-tree" in r["run"]}
 
+    # 10-15. the rest of the layer zoo, the TF1 parity modes, a record in
+    # the reference's schema and real-data prep; each path's launches
+    # counted from 0 where it is the main path.
+    import tempfile
+    t_zoo = time.perf_counter()
+    phase("zoo_layers", **zoo_layers_phase(device))
+    phase("tf1_pyramid", **tf1_pyramid_phase(device))
+    with tempfile.TemporaryDirectory() as d:
+        ref_import = reference_import_phase(device, d)
+    phase("reference_import", **ref_import)
+    zoo_train = zoo_train_phase(device)
+    phase("zoo_train", **zoo_train)
+    with tempfile.TemporaryDirectory() as d:
+        tf1_cli = tf1_cli_phase(device, d)
+    phase("tf1_cli", **tf1_cli)
+    with tempfile.TemporaryDirectory() as d:
+        prep_files = prep_files_phase(device, d)
+    phase("prep_files", zoo_phases_s=time.perf_counter() - t_zoo,
+          **prep_files)
+
     bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
     bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
                                sum(r["flops"] for r in bf), "bf16")
@@ -2226,6 +2783,12 @@ def main():
                           tree_train["fp32"]["fused_mcm_launches"],
                           "adaptive_cli": adaptive["fused_mcm_launches"],
                           **tree_cli},
+        "tf1_launches": {
+            "reference_import_per_forward":
+                ref_import["launches_per_forward"],
+            "zoo_train_per_forward": zoo_train["launches_per_forward"],
+            "tf1_cli": {r["run"]: r["launches"] for r in tf1_cli["runs"]},
+            "prep_files": prep_files["fused_mcm_launches"]},
         "dtype": "fp32",
         "work": "the eight flagship stages, batch %d, one call each" % BATCH,
         "max_abs_err": max(r["max_abs_err"] for r in f32),

@@ -15,7 +15,8 @@ switches; target = c_opt if optimistic else c_ev; sg the stop-gradient
 
 Total loss: c_err, c_cre and c_mod, each weighted by sg(p_tr); no policy
 gradient term. `dyn_k_cpt` is the router feature of `routed.py`; the
-adaptive trainer that samples k_cpt per example is not ported."""
+adaptive trainer (`train.train_adaptive_experiment`) samples k_cpt per
+example."""
 
 from functools import reduce
 

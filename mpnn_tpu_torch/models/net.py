@@ -17,7 +17,13 @@ over the members' stacked params, state and inputs (dr_tree's eight
 5-stage tails: one launch of `fused_mcm`'s net axis per tail stage and
 scale), and slices the results back into per-node records. The train
 loops carry the members pre-stacked in `pack_tree`'s layout; every tree
-a caller sees outside them is in the node layout."""
+a caller sees outside them is in the node layout.
+
+Dropout draws from the context's stream (`Ctx.rng`): `forward` draws the
+keep masks of the call first (`dropout_masks`), outside any vmap, each
+layer's from the stream folded with its uid, and each member of a
+stacked group its own, as `mpnn_tpu` folds the member root's uid into
+its key."""
 
 import itertools
 import unicodedata
@@ -27,17 +33,23 @@ import numpy as np
 import torch
 
 from ..ops import config
-from ..ops.layers import NoOp, nfkc_hypers
+from ..ops.layers import Dropout, NoOp, fold_stream, nfkc_hypers
 from ..utils.tree import stack_trees, tree_leaves, tree_map
 
 
 class Ctx(Ns):
     """Per-call context: `train` (BatchNorm uses batch moments and updates
-    its running statistics), routing temperature `tau`, exploration `eps`
-    and the cost-of-compute price `k_cpt` (a float, or a (B,) tensor)."""
+    its running statistics), the Dropout stream `rng` (an integer seed, or
+    None: Dropout is then the identity), routing temperature `tau`,
+    exploration `eps` and the cost-of-compute price `k_cpt` (a float, or a
+    (B,) tensor). `masks` holds the Dropout keep masks of the call
+    (`Net.dropout_masks`), drawn by `Net.forward` from `rng` unless the
+    caller drew them."""
 
-    def __init__(self, train=False, tau=1.0, eps=1e-6, k_cpt=0.0):
-        super().__init__(train=train, tau=tau, eps=eps, k_cpt=k_cpt)
+    def __init__(self, train=False, rng=None, tau=1.0, eps=1e-6,
+                 k_cpt=0.0, masks=None):
+        super().__init__(train=train, rng=rng, tau=tau, eps=eps,
+                         k_cpt=k_cpt, masks=masks)
 
 
 class Rec(Ns):
@@ -102,6 +114,12 @@ def _unbind_tree(tree, n):
     return out
 
 
+def _active_dropouts(node):
+    """The Dropout layers with λ < 1 of one tree node (comps and router)."""
+    return [sub for sub in _all_sublayers(node)
+            if isinstance(sub, Dropout) and sub.active()]
+
+
 def _hyper(net, name, default):
     """Hyper lookup by name, NFKC-normalized as Python normalizes the
     identifier of a kwarg (ϵ U+03F5 is stored as ε U+03B5)."""
@@ -142,6 +160,8 @@ class Net:
                 sub._uid = next(counter)
         self._n_leaves_root = n_leaves(self.root)
         self._compute_stack_plan()
+        self._has_dropout = any(_active_dropouts(node)
+                                for node in self.layers)
 
     # -------------------------------------------- congruent-subtree batching
 
@@ -343,23 +363,59 @@ class Net:
                 snk, p["sinks"][i], s["sinks"][i], o["x"], y, ctx, outs))
         return ns
 
-    def _run_group(self, template, p_st, s_st, x_st, y, ctx):
-        """One stack-plan group: `torch.func.vmap` of the template's walk
-        over the members' stacked params, state and inputs. Returns (field
-        dicts in the template's preorder, new state), every tensor with
-        the members on its leading axis; the fields that are not tensors
-        (0.0, None) come back as they are."""
-        skeleton = []
+    def dropout_masks(self, rng, batch, device):
+        """The keep masks of every Dropout with λ < 1 for one forward of
+        `batch` examples with stream `rng`, drawn here, outside any vmap
+        (torch.func refuses random draws inside one): {uid: mask} of the
+        layers the forward applies one by one, each from the stream folded
+        with its uid; under `stacked_tails`, {(member root uid, template
+        uid): mask} of each group member's, from the stream folded with
+        the member root's uid and then the template layer's, as
+        `mpnn_tpu` folds them, so members draw their own masks."""
+        if not self._has_dropout:
+            return {}
+        gen = torch.Generator(device=device)
+        plan = self._stack_plan if config.stacked_tails else []
+        masks, grouped = {}, set()
+        for g in plan:
+            subs = [d for node in g["preorders"][0]
+                    for d in _active_dropouts(node)]
+            for m, nodes in zip(g["members"], g["preorders"]):
+                grouped.update(id(n) for n in nodes)
+                member = fold_stream(rng, m._uid)
+                for d in subs:
+                    masks[(m._uid, d._uid)] = d.draw_keep(
+                        fold_stream(member, d._uid), batch, device, gen)
+        for node in self.layers:
+            if id(node) not in grouped:
+                for d in _active_dropouts(node):
+                    masks[d._uid] = d.draw_keep(fold_stream(rng, d._uid),
+                                                batch, device, gen)
+        return masks
 
-        def run(p, s, x):
+    def _run_group(self, template, members, p_st, s_st, x_st, y, ctx):
+        """One stack-plan group: `torch.func.vmap` of the template's walk
+        over the members' stacked params, state and inputs (and Dropout
+        masks, each member's own). Returns (field dicts in the template's
+        preorder, new state), every tensor with the members on its leading
+        axis; the fields that are not tensors (0.0, None) come back as
+        they are."""
+        skeleton = []
+        masks = {d._uid: torch.stack([ctx.masks[(m._uid, d._uid)]
+                                      for m in members])
+                 for node in _subtree_nodes(template)
+                 for d in _active_dropouts(node)} if ctx.masks else {}
+
+        def run(p, s, x, m):
             outs = []
-            ns = self._walk_subtree(template, p, s, x, y, ctx, outs)
+            c = Ctx(**dict(vars(ctx), masks=m))
+            ns = self._walk_subtree(template, p, s, x, y, c, outs)
             skeleton.append(tree_map(
                 lambda a: _TENSOR if torch.is_tensor(a) else a, (outs, ns)))
             return tuple(a for a in tree_leaves((outs, ns))
                          if torch.is_tensor(a))
 
-        stacked = iter(torch.func.vmap(run)(p_st, s_st, x_st))
+        stacked = iter(torch.func.vmap(run)(p_st, s_st, x_st, masks))
         return tree_map(lambda a: next(stacked) if a is _TENSOR else a,
                         skeleton[0])
 
@@ -384,6 +440,9 @@ class Net:
                              "ops.config.stacked_tails")
         if config.compute_dtype is not None:
             x0 = x0.to(config.compute_dtype)
+        if ctx.rng is not None and ctx.masks is None and self._has_dropout:
+            ctx = Ctx(**dict(vars(ctx), masks=self.dropout_masks(
+                ctx.rng, x0.shape[0], x0.device)))
         plan = self._stack_plan if config.stacked_tails else []
         group_of = self._member_at() if plan else {}
         # Per member: (params, state, input, parent's sinks list, index).
@@ -423,7 +482,7 @@ class Net:
                 p_st, s_st = (stack_trees([m[k] for m in members])
                               for k in (0, 1))
             outs, ns_st = self._run_group(
-                g["members"][0], p_st, s_st,
+                g["members"][0], g["members"], p_st, s_st,
                 stack_trees([m[2] for m in members]), y, ctx)
             for o, nodes in zip(outs, zip(*g["preorders"])):
                 for node, o_m in zip(nodes, _unbind_tree(o, len(members))):

@@ -13,8 +13,12 @@ gather of many batches per tile of steps, then the presampled step on
 each. Its draws are functions of integers, as JAX's `fold_in` keys are:
 the tile's gather of (seed, t_first), each step's augmentation of
 (seed, t); so a run resumed at a span boundary draws what the
-uninterrupted run draws. `make_eval_split_fn` loops `_eval_batch_fn`
-over a padded split.
+uninterrupted run draws. A net with an active Dropout draws its masks
+from a stream of (seed, t) of its own, beside augmentation's
+(`_drop_stream`); a net without one draws nothing more.
+`ops.config.remat_policy` recomputes the forward in the backward
+(`_remat`).
+`make_eval_split_fn` loops `_eval_batch_fn` over a padded split.
 
 Under `ops.config.stacked_tails` the forward runs the net's stack-plan
 groups as vmapped templates (`Net.forward`), in the steps, the loops and
@@ -32,13 +36,17 @@ one TF momentum update over the stacked leaves. `make_sweep_eval_split_fn`
 evaluates every member per batch. Under `stacked_tails` the sweep's loop
 packs with the members after the nets (axis 1), and each stacked group
 runs as a vmap inside the sweep's vmap: both fold into one launch of
-`fused_mcm`'s net axis. Sweep meshes are not ported."""
+`fused_mcm`'s net axis. The sweep's members share the step's Dropout
+stream and masks, as JAX's `vstep` shares its key; it takes no remat
+policy (torch.func.grad takes no saved-tensor hooks). Sweep meshes are
+not ported."""
 
 import numpy as np
 import torch
 
 from ..data.augment import augment_presampled, augmented_batch
 from ..ops import config as ops_config
+from ..ops.layers import fold_stream
 from ..utils.tree import tree_leaves, tree_map
 from .net import Ctx, _hyper
 from .optim import (momentum_init, momentum_update, talr_scale_grads,
@@ -66,11 +74,14 @@ def _step_pieces(net, batch_size, schedules, r_shift, presampled):
 
     batch_ctx(t, gen, x0_tr, y_tr, m_sym, k_cpt) -> (xb, yb, ctx) samples
     and augments the batch from the generator `gen` (with presampled, x0_tr
-    and y_tr are the batch itself and only flip and shift run).
+    and y_tr are the batch itself and only flip and shift run); ctx carries
+    the step's Dropout stream and masks (`_drop_stream`).
 
     loss_and_grads(params, state, xb, yb, ctx) -> (c_tot, new_state,
     p_tr_by_uid, grads): grads has the structure of params; p_tr_by_uid
-    holds each node's detached p_tr of the same forward."""
+    holds each node's detached p_tr of the same forward. Under
+    `ops.config.remat_policy` the forward is recomputed in the backward
+    (`_remat`)."""
     eps_rte = float(_hyper(net, "ϵ", 1e-6))
     tau_default = float(_hyper(net, "τ", 1.0))
     k_cpt_static = _hyper(net, "k_cpt", 0.0)
@@ -93,7 +104,9 @@ def _step_pieces(net, batch_size, schedules, r_shift, presampled):
                                        generator=gen, device=dev)]
         elif k_cpt is None:
             k_cpt = k_cpt_static
-        return xb, yb, Ctx(train=True, tau=tau, eps=eps_rte, k_cpt=k_cpt)
+        rng, masks = _drop_stream(net, gen, t, xb)
+        return xb, yb, Ctx(train=True, rng=rng, tau=tau, eps=eps_rte,
+                           k_cpt=k_cpt, masks=masks)
 
     loss_fn = _loss_fn(net, batch_size)
 
@@ -102,8 +115,8 @@ def _step_pieces(net, batch_size, schedules, r_shift, presampled):
         it = iter(leaves)
         live = tree_map(lambda _: next(it), params)
         with torch.enable_grad():
-            c_tot, (new_state, p_tr_by_uid) = loss_fn(live, state, xb, yb,
-                                                      ctx)
+            c_tot, (new_state, p_tr_by_uid) = _remat(loss_fn)(
+                live, state, xb, yb, ctx)
             grads = torch.autograd.grad(c_tot, leaves,
                                         materialize_grads=True)
         p_tr_by_uid = {k: v.detach() for k, v in p_tr_by_uid.items()}
@@ -112,6 +125,53 @@ def _step_pieces(net, batch_size, schedules, r_shift, presampled):
                 tree_map(lambda _: next(it), params))
 
     return batch_ctx, loss_and_grads
+
+
+def _drop_stream(net, gen, t, xb):
+    """(rng, masks) of a train step's Dropout: the stream is a function of
+    the step's generator seed and t, so of (seed, t) in the loops (the
+    counterpart of JAX's `k_drop`, split from the step's key beside
+    augmentation's), and the masks of every active Dropout are drawn from
+    it (`Net.dropout_masks`). A net without one draws nothing."""
+    rng = _fold(gen.initial_seed(), _DROP_STREAM, t)
+    return rng, net.dropout_masks(rng, xb.shape[0], xb.device)
+
+
+# Ops whose outputs the "dots" policy saves: convs, matmuls (and the
+# outputs `fused_mcm` allocates, `kernels.output_alloc`).
+_DOTS = ("convolution", "mm", "addmm", "bmm", "baddbmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    from ..ops import kernels
+    if op.overloadpacket.__name__ in _DOTS or kernels.output_alloc:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(loss_fn):
+    """loss_fn under `ops.config.remat_policy` (the counterpart of JAX's
+    `jax.checkpoint` of the loss): None as it is; "full" recomputes the
+    whole forward in the backward (`torch.utils.checkpoint`); "dots"
+    saves the conv, matmul and `fused_mcm` outputs and recomputes the
+    rest (selective checkpointing, as `dots_saveable`). The Dropout masks
+    are drawn before the loss function, so a recompute applies the same
+    ones."""
+    policy = ops_config.remat_policy
+    if policy is None:
+        return loss_fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _dots_policy)
+
+    def remat_loss(*args):
+        return checkpoint(loss_fn, *args, use_reentrant=False, **kw)
+
+    return remat_loss
 
 
 def _loss_fn(net, batch_size):
@@ -190,14 +250,17 @@ def _grad_transform(net):
 
 
 def _eval_batch_fn(net, batch_size):
-    """eval_batch(params, state, x0b, yb, maskb, tau, k_cpt) -> dict of the
-    per-example stats summed over the examples where maskb is 1 (padding
-    rows carry 0)."""
+    """eval_batch(params, state, x0b, yb, maskb, tau, k_cpt, rng=None,
+    drop=None) -> dict of the per-example stats summed over the examples
+    where maskb is 1 (padding rows carry 0). rng is the batch's Dropout
+    stream and drop its masks (`_split_sums`), or None."""
     eps_rte = float(_hyper(net, "ϵ", 1e-6))
 
     @torch.no_grad()
-    def eval_batch(params, state, x0b, yb, maskb, tau, k_cpt):
-        ctx = Ctx(train=False, tau=tau, eps=eps_rte, k_cpt=k_cpt)
+    def eval_batch(params, state, x0b, yb, maskb, tau, k_cpt, rng=None,
+                   drop=None):
+        ctx = Ctx(train=False, rng=rng, tau=tau, eps=eps_rte, k_cpt=k_cpt,
+                  masks=drop)
         recs, _ = net.forward(params, state, x0b, yb, ctx)
         net.route_for_stats(recs, batch_size, ctx)
         stats = state_stats(net, recs, yb)
@@ -211,25 +274,19 @@ def _eval_batch_fn(net, batch_size):
     return eval_batch
 
 
+def _has_active_dropout(net):
+    """True if a layer of the net is a Dropout with λ < 1: only then do
+    the evaluators thread a Dropout stream per batch (Dropout is not gated
+    by mode, as in the reference)."""
+    return net._has_dropout
+
+
 _SAMPLE_STREAM = 7919  # seed tag separating batch sampling from augmentation
-_MASK64 = (1 << 64) - 1
+_DROP_STREAM = 7927  # seed tag of the step's Dropout stream
 
-
-def _splitmix64(x):
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def _fold(seed, *tags):
-    """A generator seed that is a function of integers only (the
-    counterpart of chaining `jax.random.fold_in`): splitmix64 over the
-    sequence, cut to 63 bits."""
-    h = _splitmix64(int(seed) & _MASK64)
-    for tag in tags:
-        h = _splitmix64(h ^ (int(tag) & _MASK64))
-    return h >> 1
+# The counterpart of chaining `jax.random.fold_in`: a generator seed that
+# is a function of integers only.
+_fold = fold_stream
 
 
 def _chunk_sampler(batch_size, x0_tr, y_tr):
@@ -370,10 +427,15 @@ def _sweep_step_body(net, batch_size, schedules, r_shift=4):
     loss_and_grads, scale_grads = _sweep_members(net, batch_size)
 
     def step(params_s, state_s, vel_s, t, gen, xb, yb, m_sym, k_cpts):
+        if ops_config.remat_policy is not None:
+            raise ValueError("remat_policy is not supported by the sweep "
+                             "step: torch.func.grad takes no saved-tensor "
+                             "hooks, which checkpointing needs")
         xb, yb = augment_presampled(gen, xb, yb, m_sym, r_shift)
         tau = schedules.tau(t) if schedules.tau is not None else tau_default
         grads, (c, (state_s, p_tr_by_uid)) = loss_and_grads(
-            params_s, state_s, k_cpts, xb, yb, tau)
+            params_s, state_s, k_cpts, xb, yb, tau,
+            *_drop_stream(net, gen, t, xb))
         # A profiler range: train_bench --profile reads the update's time.
         with torch.profiler.record_function("optimizer"):
             grads, c = scale_grads(params_s, grads, p_tr_by_uid, c)
@@ -388,9 +450,12 @@ def _sweep_members(net, batch_size):
     """(loss_and_grads, scale) of a sweep's members, each a
     `torch.func.vmap` over the nets:
 
-    loss_and_grads(params_s, state_s, k_cpts, xb, yb, tau) -> (grads_s,
-    (losses, (state_s, p_tr_by_uid))): each member's loss and gradient
-    (`grad_and_value` of `_loss_fn`) on the shared batch at its price;
+    loss_and_grads(params_s, state_s, k_cpts, xb, yb, tau, rng=None,
+    masks=None) -> (grads_s, (losses, (state_s, p_tr_by_uid))): each
+    member's loss and gradient (`grad_and_value` of `_loss_fn`) on the
+    shared batch at its price, with the shared Dropout stream and masks
+    (drawn outside the vmap, as JAX's `vstep` shares its key; without a
+    stream Dropout is the identity);
 
     scale(params_s, grads_s, p_tr_by_uid, losses) -> (grads_s, losses):
     each member's analytic L2 and TALR (`_grad_transform`)."""
@@ -398,12 +463,18 @@ def _sweep_members(net, batch_size):
     grad_and_loss = torch.func.grad_and_value(_loss_fn(net, batch_size),
                                               has_aux=True)
 
-    def member(params, state, k_cpt, xb, yb, tau):
-        ctx = Ctx(train=True, tau=tau, eps=eps_rte, k_cpt=k_cpt)
+    def member(params, state, k_cpt, xb, yb, tau, rng, masks):
+        ctx = Ctx(train=True, rng=rng, tau=tau, eps=eps_rte, k_cpt=k_cpt,
+                  masks=masks)
         return grad_and_loss(params, state, xb, yb, ctx)
 
-    return (torch.func.vmap(member, in_dims=(0, 0, 0, None, None, None)),
-            torch.func.vmap(_grad_transform(net)))
+    members = torch.func.vmap(member, in_dims=(0, 0, 0) + (None,) * 5)
+
+    def loss_and_grads(params_s, state_s, k_cpts, xb, yb, tau, rng=None,
+                       masks=None):
+        return members(params_s, state_s, k_cpts, xb, yb, tau, rng, masks)
+
+    return loss_and_grads, torch.func.vmap(_grad_transform(net))
 
 
 def make_eval_split_fn(net, batch_size):
@@ -414,32 +485,42 @@ def make_eval_split_fn(net, batch_size):
 
     x0s / ys / masks are the (n_batches, B, ...) padded stacks of
     `Dataset.padded_split`; divide by the split's count for the means.
-    The sums stay on the device. eval_key seeds dropout noise in
-    `mpnn_tpu`; the port has no Dropout, so it is accepted and ignored,
-    as JAX ignores it for dropout-free nets."""
-    return _split_sums(_eval_batch_fn(net, batch_size))
+    The sums stay on the device. For a net with an active Dropout each
+    batch draws its masks from a stream of its own, folded from the
+    integer eval_key (0 if None) and the batch index, as `mpnn_tpu`
+    splits its key per batch; the trainers pass a key of (seed, t), so
+    every evaluation draws fresh masks. For other nets eval_key is
+    ignored."""
+    return _split_sums(net, _eval_batch_fn(net, batch_size))
 
 
 def make_sweep_eval_split_fn(net, batch_size):
     """The full-split evaluator of a k_cpt sweep: every member evaluated
     per batch (`torch.func.vmap` of the batch's stats over params, state
-    and k_cpt, the batch shared). Takes stacked trees and a (n_nets,)
-    k_cpt tensor; the sums carry a leading (n_nets,) axis."""
-    return _split_sums(torch.func.vmap(
+    and k_cpt, the batch and its Dropout masks shared). Takes stacked
+    trees and a (n_nets,) k_cpt tensor; the sums carry a leading (n_nets,)
+    axis."""
+    return _split_sums(net, torch.func.vmap(
         _eval_batch_fn(net, batch_size),
-        in_dims=(0, 0, None, None, None, None, 0)))
+        in_dims=(0, 0, None, None, None, None, 0, None, None)))
 
 
-def _split_sums(eval_batch):
+def _split_sums(net, eval_batch):
     """eval_split of `make_eval_split_fn`: `eval_batch` summed over the
-    batches of a padded split."""
+    batches of a padded split, each batch's Dropout masks drawn here,
+    outside any vmap, where the net has an active Dropout."""
+    use_rng = _has_active_dropout(net)
 
     def eval_split(params, state, x0s, ys, masks, tau, k_cpt,
                    eval_key=None):
         sums = None
         for i in range(x0s.shape[0]):
+            rng = drop = None
+            if use_rng:
+                rng = _fold(0 if eval_key is None else eval_key, i)
+                drop = net.dropout_masks(rng, x0s.shape[1], x0s.device)
             s = eval_batch(params, state, x0s[i], ys[i], masks[i], tau,
-                           k_cpt)
+                           k_cpt, rng, drop)
             sums = s if sums is None else {k: sums[k] + v
                                            for k, v in s.items()}
         return sums

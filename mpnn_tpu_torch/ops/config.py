@@ -53,3 +53,45 @@ stacked_tails = False
 def set_stacked_tails(flag):
     global stacked_tails
     stacked_tails = bool(flag)
+
+
+# Activation rematerialization in the train step's backward
+# (`models/steps.py:_remat`): None stores every activation; "full"
+# recomputes the loss function's whole forward in the backward
+# (`torch.utils.checkpoint`); "dots" saves the outputs of convs, matmuls
+# and `fused_mcm` and recomputes the rest (selective checkpointing), as
+# JAX's `dots_saveable` does. Off by default, as in `mpnn_tpu`.
+remat_policy = None
+
+
+def set_remat(policy):
+    global remat_policy
+    if policy not in (None, "full", "dots"):
+        raise ValueError("remat policy must be None, 'full' or 'dots', "
+                         "got %r" % (policy,))
+    remat_policy = policy
+
+
+# TF1 parity of the pyramid: `ToPyramid` takes TF1's legacy bilinear grid
+# (src = dst * in/out, no half-pixel shift, clamped; a strided slice at
+# the x2 ratios of every experiment) instead of the antialiased
+# half-pixel grid. Parameters trained by the reference evaluate correctly
+# only under this grid. Off by default, as in `mpnn_tpu`.
+pyramid_tf1 = False
+
+
+def set_pyramid_tf1(flag):
+    global pyramid_tf1
+    pyramid_tf1 = bool(flag)
+
+
+# TF1 parity of `MaxPool`: the reference passes its `stride` hyper as the
+# window and `supp` as the stride, so what it computes is window=stride,
+# stride=supp. Off (window=supp, stride=stride) by default, as in
+# `mpnn_tpu`; for records trained by the reference that hold a MaxPool.
+maxpool_tf1 = False
+
+
+def set_maxpool_tf1(flag):
+    global maxpool_tf1
+    maxpool_tf1 = bool(flag)

@@ -45,6 +45,20 @@ __all__ = ["fused_mcm", "mcm_ref", "_pack_w"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# True while `_forward` allocates a kernel output: the "dots" remat
+# policy (`models/steps.py:_dots_policy`) saves what is allocated then,
+# since the ctypes launch that fills it is invisible to the dispatcher.
+output_alloc = False
+
+
+def _new_output(shape, dtype, device):
+    global output_alloc
+    output_alloc = True
+    try:
+        return torch.empty(shape, dtype=dtype, device=device)
+    finally:
+        output_alloc = False
+
 
 def _pack_w(w):
     """(kh, kw, Cin, Cout) -> (kh*kw*Cin, Cout), tap-major like im2col. The
@@ -266,12 +280,12 @@ def _forward(kept, whs, wvs, bs, supp, n_nets=0, batched=None):
         tail = (B, H, W, Cin, Cprev, Cout, _DTYPE_CODE[cdt])
         if n_nets:
             s_out = _padded_stride(B * H * W * Cout, x.element_size())
-            out = torch.empty((N, s_out), dtype=cdt, device=dev)
+            out = _new_output((N, s_out), cdt, dev)
             _launch_nets(dev, *args, out.data_ptr(), N, s_x, s_wh, s_prev,
                          s_wv, s_b, s_out, *tail)
         else:
             s_out = 0
-            out = torch.empty(oshape, dtype=cdt, device=dev)
+            out = _new_output(oshape, cdt, dev)
             _launch(dev, *args, out.data_ptr(), *tail)
         outs.append((out, s_out, oshape))
     if not n_nets:

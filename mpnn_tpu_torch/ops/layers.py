@@ -36,10 +36,12 @@ import torch.nn.functional as F
 from . import config
 
 __all__ = [
-    "Layer", "NoOp", "LinTrans", "Rect", "Softmax", "ToPyramid",
-    "MultiscaleConvMax", "MultiscaleRect", "Select", "BatchNorm",
-    "MultiscaleBatchNorm", "CrossEntropyError", "Chain", "Aux",
-    "nfkc_hypers", "conv_same",
+    "Layer", "NoOp", "LinTrans", "Conv", "Rect", "Softmax", "MaxPool",
+    "GlobalMaxPool", "ToPyramid", "MultiscaleLLN", "MultiscaleConvMax",
+    "MultiscaleRect", "Select", "Dropout", "BatchNorm",
+    "MultiscaleBatchNorm", "SquaredError", "CrossEntropyError",
+    "SuperclassCrossEntropyError", "ActivityError", "Chain", "Aux",
+    "nfkc_hypers", "conv_same", "max_pool_same", "fold_stream",
 ]
 
 
@@ -82,7 +84,24 @@ def conv_same(x, w):
 
     Under a bf16 compute policy inputs and weights are cast to bf16 and the
     output stays bf16. Even (clipped) kernels pad as XLA's SAME does."""
-    x, w = config.cast_compute(x), config.cast_compute(w)
+    return _conv_nhwc(config.cast_compute(x), config.cast_compute(w))
+
+
+def max_pool_same(x, supp, stride):
+    """supp x supp max-pool of an NHWC tensor at `stride`, SAME padding
+    with -inf as XLA's reduce_window pads: ceil(n / stride) outputs a
+    side, the padding split low / high with the odd one high (which
+    `F.max_pool2d`'s symmetric padding cannot express)."""
+    pads = []
+    for n in (x.shape[2], x.shape[1]):  # F.pad's order: W, then H
+        total = max((-(-n // stride) - 1) * stride + supp - n, 0)
+        pads += [total // 2, total - total // 2]
+    xp = F.pad(x.permute(0, 3, 1, 2), pads, value=-math.inf)
+    return F.max_pool2d(xp, supp, stride).permute(0, 2, 3, 1).contiguous()
+
+
+def _conv_nhwc(x, w):
+    """`conv_same` in the dtype of its arguments (no compute policy)."""
     out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                    padding="same")
     return out.permute(0, 2, 3, 1).contiguous()
@@ -94,8 +113,7 @@ def _pool2(x):
     b, h, w, c = x.shape
     if h % 2 == 0 and w % 2 == 0:
         return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
-    out = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
-    return out.permute(0, 2, 3, 1).contiguous()
+    return max_pool_same(x, 2, 2)
 
 
 def _matmul(x, w):
@@ -114,6 +132,7 @@ def _bias_add(out, b):
 
 class Layer:
     default_hypers = {}
+    _uid = 0  # set per instance by Net.build; keys stats and streams
 
     def __init__(self, name=None, router=None, sinks=None, comps=None,
                  **hypers):
@@ -190,6 +209,49 @@ class LinTrans(Layer):
                       self._w_eq if self.hypers.res else None)}
 
 
+class Conv(Layer):
+    """SAME stride-1 conv plus bias, with optional identity-kernel
+    residual init and L2 penalty measured relative to it.
+    n_ops = n_pix * supp^2 * n_in * n_chan."""
+
+    default_hypers = dict(n_chan=1, supp=1, k_l2=0, σ_w=1, res=False)
+
+    def build(self, x_shape):
+        h = self.hypers
+        n_in = x_shape[-1]
+        if h.res:
+            centre = torch.arange(h.supp) == h.supp // 2
+            self._w_eq = (centre[:, None, None, None]
+                          * centre[:, None, None]
+                          * torch.eye(n_in, h.n_chan)).float()
+        else:
+            self._w_eq = torch.tensor(0.0)
+        self._n_in = n_in
+        self.out_shape = tuple(x_shape[:2]) + (h.n_chan,)
+        self.n_ops = float(_prod(x_shape[:2]) * h.supp ** 2 * n_in
+                           * h.n_chan)
+
+    def init(self, gen, x_shape):
+        h = self.hypers
+        w_scale = h.σ_w / h.supp / math.sqrt(self._n_in)
+        w = self._w_eq + w_scale * _randn(
+            gen, (h.supp, h.supp, self._n_in, h.n_chan))
+        return {"w": w, "b": torch.zeros(h.n_chan)}
+
+    def apply(self, params, state, x, y, ctx):
+        w = params["w"]
+        out = _bias_add(conv_same(x, w), params["b"])
+        if y is None or config.analytic_l2:
+            return out, state, Aux()
+        d = w - self._w_eq.to(w.device) if self.hypers.res else w
+        c_mod = self.hypers.k_l2 * torch.sum(torch.square(d))
+        return out, state, Aux(c_mod=c_mod)
+
+    def l2_specs(self):
+        return {"w": (float(self.hypers.k_l2),
+                      self._w_eq if self.hypers.res else None)}
+
+
 class Rect(Layer):
     """ReLU."""
 
@@ -205,16 +267,76 @@ class Softmax(Layer):
         return torch.softmax(x.float(), dim=-1), state, Aux()
 
 
+class MaxPool(Layer):
+    """Strided SAME max-pool, window `supp` and stride `stride`. Under
+    `config.maxpool_tf1` it computes what the reference computes, which
+    passes the two transposed: window `stride`, stride `supp`."""
+
+    default_hypers = dict(stride=1, supp=1)
+
+    def _window_stride(self):
+        if config.maxpool_tf1:
+            return self.hypers.stride, self.hypers.supp
+        return self.hypers.supp, self.hypers.stride
+
+    def build(self, x_shape):
+        h, w = x_shape[:2]
+        _, s = self._window_stride()
+        self.out_shape = (-(-h // s), -(-w // s)) + (x_shape[2],)
+        self.n_ops = 0.0
+
+    def apply(self, params, state, x, y, ctx):
+        supp, stride = self._window_stride()
+        return max_pool_same(x, supp, stride), state, Aux()
+
+
+class GlobalMaxPool(Layer):
+    """Max over all but the batch and channel axes."""
+
+    def build(self, x_shape):
+        self.out_shape = (x_shape[-1],)
+        self.n_ops = 0.0
+
+    def apply(self, params, state, x, y, ctx):
+        return torch.amax(x, dim=tuple(range(1, x.dim() - 1))), state, Aux()
+
+
 ################################################################################
 # Multiscale transformation layers
 ################################################################################
+
+def _tf1_legacy_resize(x, out_h, out_w):
+    """TF1's legacy bilinear resize of an NHWC tensor (align_corners
+    False): src = dst * in / out with no half-pixel shift, the far
+    neighbour clamped to the edge. At integer ratios the weights are 0,
+    so it is a strided slice."""
+    n, h, w, c = x.shape
+    if h % out_h == 0 and w % out_w == 0:
+        return x[:, ::h // out_h, ::w // out_w]
+    ys = np.arange(out_h) * (h / out_h)
+    xs = np.arange(out_w) * (w / out_w)
+    y0, x0 = np.floor(ys).astype(np.int64), np.floor(xs).astype(np.int64)
+    y1, x1 = np.minimum(y0 + 1, h - 1), np.minimum(x0 + 1, w - 1)
+    wy = torch.as_tensor((ys - y0)[None, :, None, None], dtype=x.dtype,
+                         device=x.device)
+    wx = torch.as_tensor((xs - x0)[None, None, :, None], dtype=x.dtype,
+                         device=x.device)
+    y0, y1, x0, x1 = (torch.as_tensor(i, device=x.device)
+                      for i in (y0, y1, x0, x1))
+    top, bot = x[:, y0], x[:, y1]
+    top = top[:, :, x0] * (1 - wx) + top[:, :, x1] * wx
+    bot = bot[:, :, x0] * (1 - wx) + bot[:, :, x1] * wx
+    return top * (1 - wy) + bot * wy
+
 
 class ToPyramid(Layer):
     """Image pyramid: n_scales bilinear-resized copies at (h/2^i, w/2^i).
 
     `jax.image.resize(..., "bilinear")` antialiases when it shrinks, so the
     port resizes with `antialias=True` (without it 32->16/8/4 differs by up
-    to 0.35). The TF1 legacy grid mode of `mpnn_tpu` is not ported."""
+    to 0.35). Under `config.pyramid_tf1` it takes TF1's legacy grid instead
+    (`_tf1_legacy_resize`, no antialiasing): the grid that parameters
+    trained by the reference need."""
 
     default_hypers = dict(n_scales=1)
 
@@ -225,6 +347,10 @@ class ToPyramid(Layer):
         self.n_ops = 0.0
 
     def apply(self, params, state, x, y, ctx):
+        if config.pyramid_tf1:
+            return [x if (h, w) == tuple(x.shape[1:3])
+                    else _tf1_legacy_resize(x, h, w)
+                    for (h, w, c) in self.out_shape], state, Aux()
         out = []
         # Resized in fp32 and rounded once to the input's dtype (the CPU
         # has no bf16 antialiased resize).
@@ -237,6 +363,41 @@ class ToPyramid(Layer):
                                   align_corners=False, antialias=True)
                 out.append(r.permute(0, 2, 3, 1).to(x.dtype).contiguous())
         return out, state, Aux()
+
+
+class MultiscaleLLN(Layer):
+    """Local luminance normalization per pyramid scale: each scale divided
+    by its Gaussian-weighted (σ) Rec.709 luma, corrected at the borders by
+    the kernel's density (the same SAME conv of a ones image, computed once
+    at build time), plus ϵ."""
+
+    default_hypers = dict(shape0=(1, 1), σ=3, ϵ=1e-3)
+
+    def build(self, x_shape):
+        h = self.hypers
+        s = int(np.ceil(2 * h.σ))
+        u = np.linspace(-s, s, 2 * s + 1)[:, None, None, None]
+        v = np.linspace(-s, s, 2 * s + 1)[:, None, None]
+        k = (np.exp(-(u ** 2 + v ** 2) / (2 * h.σ ** 2))
+             / (2 * np.pi * h.σ ** 2)
+             * [[0.2126], [0.7152], [0.0722]])
+        # (2s+1, 2s+1, 3, 1), HWIO
+        self._k = torch.as_tensor(k, dtype=torch.float32)
+        self._density = [_conv_nhwc(torch.ones((1,) + tuple(shp)),
+                                         self._k) for shp in x_shape]
+        self._consts = {}  # (device, dtype) -> (kernel, densities)
+        self.out_shape = list(x_shape)
+        self.n_ops = 0.0
+
+    def apply(self, params, state, x, y, ctx):
+        key = (x[0].device, x[0].dtype)
+        if key not in self._consts:
+            self._consts[key] = (
+                self._k.to(*key), [d.to(*key) for d in self._density])
+        k, dens = self._consts[key]
+        eps = self.hypers.ϵ
+        return [x_i / (_conv_nhwc(x_i, k) / d + eps)
+                for x_i, d in zip(x, dens)], state, Aux()
 
 
 class MultiscaleConvMax(Layer):
@@ -361,6 +522,68 @@ class Select(Layer):
 # Regularization layers
 ################################################################################
 
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x):
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_stream(seed, *tags):
+    """A generator seed that is a function of integers only (the
+    counterpart of chaining `jax.random.fold_in`): splitmix64 over the
+    sequence, cut to 63 bits."""
+    h = _splitmix64(int(seed) & _MASK64)
+    for tag in tags:
+        h = _splitmix64(h ^ (int(tag) & _MASK64))
+    return h >> 1
+
+
+class Dropout(Layer):
+    """Keep-probability λ dropout with 1/λ rescale. As in the reference it
+    is not gated by mode: it applies in training and evaluation whenever
+    the context carries a stream (`ctx.rng`), and is the identity at
+    λ = 1 or without one (routed serving passes none).
+
+    The keep mask is `ctx.masks[uid]` where the forward drew it
+    (`Net.dropout_masks`: outside any vmap, since torch.func refuses random
+    draws inside one), else drawn here from the stream folded with the
+    layer's uid (`draw_keep`)."""
+
+    default_hypers = dict(λ=1)
+
+    def build(self, x_shape):
+        self.out_shape = x_shape
+        self.n_ops = 0.0
+
+    def active(self):
+        return self.hypers.λ < 1
+
+    def draw_keep(self, seed, batch, device, gen=None):
+        """The (batch,) + in-shape keep mask of stream `seed`: uniform
+        draws below λ."""
+        gen = gen or torch.Generator(device=device)
+        gen.manual_seed(seed)
+        u = torch.rand((batch,) + tuple(self.out_shape), generator=gen,
+                       device=device)
+        return u < self.hypers.λ
+
+    def apply(self, params, state, x, y, ctx):
+        lam = self.hypers.λ
+        rng = getattr(ctx, "rng", None)
+        if lam >= 1 or rng is None:
+            return x, state, Aux()
+        masks = getattr(ctx, "masks", None) or {}
+        keep = masks.get(self._uid)
+        if keep is None:
+            keep = self.draw_keep(fold_stream(rng, self._uid), x.shape[0],
+                                  x.device)
+        return torch.where(keep, x / lam, 0.0), state, Aux()
+
+
 class BatchNorm(Layer):
     """Batch normalization with EMA running statistics (decay d); γ/β are
     params, m_avg / v_avg state. Train mode (`ctx.train`) normalizes with
@@ -443,6 +666,20 @@ class MultiscaleBatchNorm(Layer):
 # Error layers
 ################################################################################
 
+def _delta_cor(x, y):
+    return (torch.argmax(x, dim=1) == torch.argmax(y, dim=1)).float()
+
+
+class SquaredError(Layer):
+    """Per-example sum-of-squares error plus the correctness indicator."""
+
+    def apply(self, params, state, x, y, ctx):
+        if y is None:
+            return x, state, Aux()
+        c_err = torch.sum(torch.square(x.float() - y), dim=1)
+        return x, state, Aux(c_err=c_err, delta_cor=_delta_cor(x, y))
+
+
 class CrossEntropyError(Layer):
     """Cross-entropy on already-softmaxed probs with an eps-floor
     p_cls = eps/n_cls + (1-eps)*x, plus the correctness indicator."""
@@ -455,9 +692,46 @@ class CrossEntropyError(Layer):
         eps = self.hypers.ϵ
         p_cls = eps / y.shape[1] + (1 - eps) * x.float()
         c_err = -torch.sum(y * torch.log(p_cls), dim=1)
-        delta_cor = (torch.argmax(x, dim=1)
-                     == torch.argmax(y, dim=1)).float()
-        return x, state, Aux(c_err=c_err, delta_cor=delta_cor)
+        return x, state, Aux(c_err=c_err, delta_cor=_delta_cor(x, y))
+
+
+class SuperclassCrossEntropyError(Layer):
+    """Cross-entropy against the labels projected through the hyper
+    `w_cls` (n_cls, n_superclasses), with CrossEntropyError's eps-floor;
+    correctness against the projected labels."""
+
+    default_hypers = dict(w_cls=None, ϵ=1e-6)
+
+    def build(self, x_shape):
+        super().build(x_shape)
+        self._w_cls = torch.as_tensor(
+            np.asarray(self.hypers.w_cls, np.float32))
+        self._w_on = {}  # device -> w_cls there
+
+    def apply(self, params, state, x, y, ctx):
+        if y is None:
+            return x, state, Aux()
+        if y.device not in self._w_on:
+            self._w_on[y.device] = self._w_cls.to(y.device)
+        y_sup = y @ self._w_on[y.device]
+        eps = self.hypers.ϵ
+        p_cls = eps / y_sup.shape[1] + (1 - eps) * x.float()
+        c_err = -torch.sum(y_sup * torch.log(p_cls), dim=1)
+        return x, state, Aux(c_err=c_err, delta_cor=_delta_cor(x, y_sup))
+
+
+class ActivityError(Layer):
+    """Activity regularizer: c_mod = α * the per-example sum of squared
+    activations, a (B,) term."""
+
+    default_hypers = dict(α=0.0)
+
+    def apply(self, params, state, x, y, ctx):
+        if y is None:
+            return x, state, Aux()
+        c_mod = self.hypers.α * torch.sum(torch.square(x.float()),
+                                          dim=tuple(range(1, x.dim())))
+        return x, state, Aux(c_mod=c_mod)
 
 
 ################################################################################

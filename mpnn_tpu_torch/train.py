@@ -33,9 +33,12 @@ With --stacked-tails each group of congruent subtrees (a tree's eight
 (`ops.config.stacked_tails`, off by default as in `mpnn_tpu`); the files
 are those of the serial path.
 
+--pyramid-tf1 and --maxpool-tf1 set the TF1 parity modes
+(`ops.config.pyramid_tf1`, `maxpool_tf1`) before any net is built, as
+`scripts/train-nets` does.
+
 Runs on CUDA unless --device cpu is given. Not ported: meshes (the sweep
-mesh included) and multi-host runs, --profile-dir and the TF1 parity
-modes."""
+mesh included) and multi-host runs, and --profile-dir."""
 
 import json
 import os
@@ -48,6 +51,7 @@ import torch
 from . import experiments as cfg
 from . import resolve_device, set_up_device, synchronize
 from .data.dataset import Dataset
+from .ops.layers import fold_stream
 from .models.steps import (Schedules, init_training, make_eval_split_fn,
                            make_sweep_eval_split_fn, make_sweep_train_loop,
                            make_train_loop)
@@ -61,6 +65,33 @@ __all__ = ["train_one_net", "train_experiment", "train_adaptive_experiment",
 STACKED_TAILS_HELP = ("run each group of congruent subtrees (a tree's "
                       "tails) as one vmapped template, its stages one "
                       "launch of fused_mcm's net axis")
+
+
+def add_tf1_flags(parser):
+    """--pyramid-tf1 and --maxpool-tf1, the TF1 parity modes."""
+    parser.add_argument("--pyramid-tf1", action="store_true",
+                        help="ToPyramid on TF1's legacy resize grid (for "
+                             "records trained by the reference; "
+                             "ops.config.set_pyramid_tf1)")
+    parser.add_argument("--maxpool-tf1", action="store_true",
+                        help="MaxPool with the reference's transposed "
+                             "arguments (window=stride, stride=supp; "
+                             "ops.config.set_maxpool_tf1)")
+
+
+def set_tf1_modes(args):
+    """Set the TF1 parity modes of parsed `add_tf1_flags` arguments, before
+    any net is built."""
+    from .ops import config
+    config.set_pyramid_tf1(args.pyramid_tf1)
+    config.set_maxpool_tf1(args.maxpool_tf1)
+
+
+def _eval_key(seed, t):
+    """The evaluation's Dropout key at step t, a function of (seed, t) as
+    `mpnn_tpu`'s fold_in(PRNGKey(seed + 2), t) is; ignored by nets without
+    an active Dropout."""
+    return fold_stream(seed + 2, t)
 
 
 def _write_manifest(out_dir, dataset):
@@ -211,7 +242,7 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
         return net_desc(net, dataset, trees[0], trees[1],
                         batch_size=batch_size,
                         tau=_tau_at(tau_fn, t - 1, net),
-                        eval_split=eval_split)
+                        eval_split=eval_split, eval_key=_eval_key(seed, t))
 
     def write(t, desc, trees):
         if out_dir is not None:
@@ -313,7 +344,8 @@ def _train_sweep(expt, expt_name, dataset, *, n_iter, t_log, batch_size,
         return sweep_net_descs(net, dataset, trees[0], trees[1], k_cpts,
                                batch_size=batch_size,
                                tau=_tau_at(expt.tau, t - 1, net),
-                               eval_split=eval_split)
+                               eval_split=eval_split,
+                               eval_key=_eval_key(seed, t))
 
     def write(t, descs, trees):
         # One device-to-host copy of the stacked trees, then per-net views.
@@ -432,7 +464,8 @@ def train_adaptive_experiment(expt_name, *, n_iter=None, batch_size=None,
         tau = _tau_at(expt.tau, t - 1, net)
         return [net_desc(net, dataset, trees[0], trees[1],
                          batch_size=batch_size, tau=tau, k_cpt=k_cpt,
-                         eval_split=eval_split) for k_cpt in cfg.k_cpts]
+                         eval_split=eval_split, eval_key=_eval_key(seed, t))
+                for k_cpt in cfg.k_cpts]
 
     def write(t, descs, trees):
         for i, desc in enumerate(descs):
@@ -481,6 +514,7 @@ def main(argv=None):
                              "instead of in-graph reductions")
     parser.add_argument("--stacked-tails", action="store_true",
                         help=STACKED_TAILS_HELP)
+    add_tf1_flags(parser)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu on request)")
     args = parser.parse_args(argv)
@@ -491,6 +525,7 @@ def main(argv=None):
     from .ops import config
     config.set_analytic_l2(args.analytic_l2)
     config.set_stacked_tails(args.stacked_tails)
+    set_tf1_modes(args)
     train_experiment(
         args.expt, n_iter=args.n_iter, t_log=args.t_log,
         batch_size=args.batch_size, net_indices=args.net,

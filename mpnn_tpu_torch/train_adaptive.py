@@ -24,15 +24,15 @@ price) and host seconds (`train.train_adaptive_experiment`'s timings),
 and the fused_mcm kernel launches it made (`fused_mcm_launches`, of which
 `fused_mcm_net_launches` on the net axis).
 
-Not ported: `--pyramid-tf1` and `--maxpool-tf1` (the TF1 parity modes);
-`--platform` is JAX's and the port has `--device`."""
+--pyramid-tf1 and --maxpool-tf1 set the TF1 parity modes before the net
+is built. `--platform` is JAX's and the port has `--device`."""
 
 import json
 import os
 from argparse import ArgumentParser
 
 from . import experiments as cfg
-from .train import STACKED_TAILS_HELP
+from .train import STACKED_TAILS_HELP, add_tf1_flags, set_tf1_modes
 
 
 def main(argv=None):
@@ -59,6 +59,7 @@ def main(argv=None):
                              "at every t_log boundary")
     parser.add_argument("--stacked-tails", action="store_true",
                         help=STACKED_TAILS_HELP)
+    add_tf1_flags(parser)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu on request)")
     args = parser.parse_args(argv)
@@ -69,6 +70,7 @@ def main(argv=None):
     from .train import train_adaptive_experiment
     device = set_up_device(args.device, args.precision)
     config.set_stacked_tails(args.stacked_tails)
+    set_tf1_modes(args)
     n0, m0, timings = fused_mcm.launches, fused_mcm.net_launches, {}
     train_adaptive_experiment(
         args.expt, n_iter=args.n_iter, batch_size=args.batch_size,

@@ -11,7 +11,15 @@ and the net record is {'type', 'root', 'hypers', 'params'} plus an
 optional 'extra' = {'vel': <momentum tree>, 't': <step>} for resume.
 BatchNorm running statistics (m_avg / v_avg) sit under 'params' in the
 file and are state at run time. Hyper keys may be raw unicode (e.g. 'ϵ'
-U+03F5); layers and nets NFKC-normalize them.
+U+03F5); layers and nets NFKC-normalize them. Every layer type of
+`mpnn_tpu`'s zoo reads and writes back; a hyper may be an array
+(SuperclassCrossEntropyError's `w_cls`).
+
+Records written by the reference (class, hyper and parameter names are
+shared) read as they are, but parameters trained by it evaluate
+correctly only under the TF1 pyramid grid (`ops.config.pyramid_tf1`,
+`--pyramid-tf1`), and a MaxPool of such a record needs
+`ops.config.maxpool_tf1`.
 
 A written record holds float32 numpy arrays, plain Python hypers and
 `t` as a 0-d int64 array, as `mpnn_tpu` writes it, so either package
@@ -41,9 +49,11 @@ __all__ = ["encode_net", "decode_net", "write_net", "read_net",
 STATE_KEYS = frozenset({"m_avg", "v_avg"})
 
 _LAYER_TYPES = {name: getattr(layer_lib, name) for name in (
-    "NoOp", "LinTrans", "Rect", "Softmax", "ToPyramid", "MultiscaleConvMax",
-    "MultiscaleRect", "Select", "BatchNorm", "MultiscaleBatchNorm",
-    "CrossEntropyError", "Chain")}
+    "NoOp", "LinTrans", "Conv", "Rect", "Softmax", "MaxPool", "GlobalMaxPool",
+    "ToPyramid", "MultiscaleLLN", "MultiscaleConvMax", "MultiscaleRect",
+    "Select", "Dropout", "BatchNorm", "MultiscaleBatchNorm", "SquaredError",
+    "CrossEntropyError", "SuperclassCrossEntropyError", "ActivityError",
+    "Chain")}
 _NET_TYPES = {"ActorNet": actor_lib.ActorNet,
               "CriticNet": critic_lib.CriticNet, "SRNet": sr_lib.SRNet}
 
@@ -138,8 +148,7 @@ def from_numpy_tree(*trees, device="cuda"):
 
 def _lookup(table, name, what):
     if name not in table:
-        raise ValueError("%s type %r is not ported to mpnn_tpu_torch yet"
-                         % (what, name))
+        raise ValueError("unknown %s type %r" % (what, name))
     return table[name]
 
 

@@ -67,7 +67,14 @@ def test_import_with_jax_blocked():
              "mpnn_tpu_torch.utils.tree, mpnn_tpu_torch.train_bench, "
              "mpnn_tpu_torch.train, mpnn_tpu_torch.data.dataset, "
              "mpnn_tpu_torch.data.prep, mpnn_tpu_torch.models.sr, "
-             "mpnn_tpu_torch.models.critic, mpnn_tpu_torch.utils.desc; "
+             "mpnn_tpu_torch.models.critic, mpnn_tpu_torch.utils.desc, "
+             "mpnn_tpu_torch.ops.layers, mpnn_tpu_torch.ops.config, "
+             "mpnn_tpu_torch.train_adaptive, mpnn_tpu_torch.models.net; "
+             "from mpnn_tpu_torch.ops import (Conv, MaxPool, GlobalMaxPool, "
+             "MultiscaleLLN, Dropout, SquaredError, ActivityError, "
+             "SuperclassCrossEntropyError); "
+             "from mpnn_tpu_torch.data.prep import (prepare_from_files, "
+             "download_and_prepare); "
              "print('ok')")
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
