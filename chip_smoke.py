@@ -16,8 +16,10 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               plain version mcm_ref in fp32 (TF32 off; max abs error <=
               1e-4 * max|ref|) and bf16 (<= 2e-2 * max|ref|), and times the
               kernel, mcm_ref and the cuDNN conv sequence mcm_ref makes,
-              per call from Python (`ms`) and on the device alone (CUDA
-              graph replay, `device_ms`);
+              per call from Python (`ms`; `launch_ms` the launches alone,
+              without the autograd Function and the mcm_stage operator's
+              dispatch) and on the device alone (CUDA graph replay,
+              `device_ms`);
               four shapes off the flagship's path are checked too (widths
               12/6/3 at batch 7; output widths 12, 20 and 160; input
               channels 3, 4 and 24; printed as `kernel_off_path`), and
@@ -97,7 +99,7 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               losses per member; the worst member's errors and a float64
               stage's are printed), with
               exactly 20 launches per sweep forward and none in the
-              backward; sweep_train_fp32 and sweep_train_bf16 take 5 timed
+              backward; sweep_train_fp32 and sweep_train_bf16 take 3 timed
               windows of 20 steps each (aggregate img/s of all nets,
               median and every window, beside the single-net rate of the
               train phase of the same run), the counts from 0 and 20
@@ -135,7 +137,7 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               dense and at capacities calibrated on the train split: fp32
               through the kernel against mcm_ref (probs within 1e-4, the
               same exits, ops and forced counts outside router near-ties
-              on the example's path), then bf16 timed (5 windows of 2
+              on the example's path), then bf16 timed (3 windows of 2
               passes over the padded test split, dense and routed in
               turns; the kernel's count from 0), with the bf16 exits that
               differ from fp32's. tree_desc_vs_jax_files prints, per
@@ -144,6 +146,33 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               (accuracy, moc, the largest difference of a scalar stat;
               not a gate), and, where the fp32 net.npy is in the
               checkout, net_desc of that beside both.
+7e. serving artifacts, the parity harness, compact archives --
+              export_chain: the trained flagship traced with torch.export
+              (mpnn_tpu_torch.export) at batch 1024 in bf16 at
+              serve_bf16's calibrated capacities, saved, loaded and served
+              on two synthetic batches against the direct engine (exit_idx,
+              ops and forced equal, probs within 1e-5, 20 launches a
+              batch, counted from 0 per batch), img/s of the artifact and
+              the engine in turns (3 windows of 20 batches); the same file
+              served by a fresh process that cannot import jax, mpnn_tpu or
+              the port's models, utils and experiments; an fp32 export at
+              batch 64 moved to the CPU against the CPU engine (exits
+              outside router near-ties, probs within 1e-4). export_adaptive:
+              results/nets/hybrid-ac-dynkcpt/net.npy as one dyn_k_cpt
+              artifact (capacities calibrated at price 0) served at the 8
+              prices on the rebuilt hybrid.npz's first test batch against
+              the engine, 20 launches a batch, mean ops at the dearest
+              price at most at price 0. export_tree: the trained tree the
+              same way, 96 launches a batch. parity: check_parity and
+              check_grad_parity of the flagship on the first 8 test images,
+              fp32 on the kernel path, ok, 20 launches a forward; under
+              bf16 check_parity must fail; `python -m
+              mpnn_tpu_torch.check_parity --grads` as a process: exit 0,
+              PARITY OK. compact: the tree's archive read, rewritten by
+              write_compact and read back bit for bit; the net decoded from
+              it (params bit for bit) serves a batch with the original's
+              exits (probs within 1e-5). Each with its seconds, file bytes
+              and load seconds.
 8. train_cli -- the training CLI's path (`train.train_experiment`, as
               `python -m mpnn_tpu_torch.train` runs it) in a temporary
               directory, fp32, batch 128, t_log 20, on the small synthetic
@@ -210,7 +239,9 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               11 launches a forward, serially and with stacked tails (the
               two zoo leaves one group); remat "full" and "dots" against
               none, gradients within 1e-5 over the tree, each with its
-              peak device memory.
+              peak device memory and its launches: "dots" saves the
+              mcm_stage operator's outputs, so it launches as none does
+              (11 a step), "full" recomputes (22).
 14. tf1_cli -- `train synth-ac --net 4 --pyramid-tf1` and `train_adaptive
               synth-ac-dynkcpt --pyramid-tf1 --maxpool-tf1` to 20 steps
               in this process on the small archives, fp32, batch 128:
@@ -279,7 +310,9 @@ N_SERVE = 20  # batches per timed serving window
 N_WINDOWS = 5  # timed serving windows per capacity
 N_TRAIN_WINDOWS = 3  # timed windows of N_TRAIN_STEPS single-net steps
 N_NETS = 8  # nets of the flagship sweep (experiments.k_cpts)
-N_SWEEP_WINDOWS = 5  # timed windows of N_TRAIN_STEPS sweep steps
+# Timed windows of N_TRAIN_STEPS sweep steps: 3, as N_TREE_WINDOWS, to keep
+# the script inside its time limit on slower hosts.
+N_SWEEP_WINDOWS = 3
 # (experiment, n_iter, resume) of the train_cli phase's --vmap-sweep runs,
 # and the synth-ac member whose final descriptor is held against mcm_ref.
 SWEEP_CLI_RUNS = [("synth-ac", 40, False), ("synth-ac", 60, True),
@@ -389,9 +422,9 @@ def grad_phase(device):
 def kernel_phase(device):
     from mpnn_tpu_torch.experiments import arch
     from mpnn_tpu_torch.kernel_bench import (bound, stage_cost, stage_inputs,
-                                             stage_times)
+                                             stage_times, time_ms)
     from mpnn_tpu_torch.ops import config
-    from mpnn_tpu_torch.ops.kernels import fused_mcm, mcm_ref
+    from mpnn_tpu_torch.ops.kernels import _forward, fused_mcm, mcm_ref
 
     def compare(label, xin, whs, wvs, bs, dt):
         out = fused_mcm(xin, whs, wvs, bs, 3)
@@ -472,6 +505,12 @@ def kernel_phase(device):
                 # Timed on weights already in the compute dtype, so the
                 # times hold compute only (the casts are then no-ops).
                 row.update(stage_times(xin, whs, wvs, bs))
+                # The launches alone, without the autograd Function and the
+                # mcm_stage operator's dispatch: ms - launch_ms is what
+                # those add to a call.
+                wc, vc = ([w.to(torch_dt) for w in ws] for ws in (whs, wvs))
+                row["launch_ms"] = time_ms(lambda: _forward(
+                    xin[len(xin) - len(wc):], wc, vc, bs, 3, torch_dt))
                 row["bound_ms"], row["bound_by"] = bound(n_bytes, flops, dt)
                 row["vs_cudnn"] = (row["device_ms"]
                                    / row["cudnn_conv_sequence_device_ms"])
@@ -482,10 +521,13 @@ def kernel_phase(device):
     for dt, B in (("fp32", BATCH), ("bf16", BATCH), ("fp32", TRAIN_BATCH),
                   ("bf16", TRAIN_BATCH), ("bf16", ROUTED_BATCH)):
         sel = [r for r in rows if r["dtype"] == dt and r["batch"] == B]
-        phase("kernel", dtype=dt, batch=B, totals=stage_totals(sel), stages=[
+        totals = dict(stage_totals(sel), **{k: sum(r[k] for r in sel)
+                                            for k in ("ms", "launch_ms")})
+        phase("kernel", dtype=dt, batch=B, totals=totals, stages=[
             {k: r[k] for k in ("stage", "shape", "c_out", "max_abs_err",
                                "rel_err_vs_fp32_ref", "rel_err_vs_f64",
-                               "plain_rel_err_vs_f64", "ms", "plain_ms",
+                               "plain_rel_err_vs_f64", "ms", "launch_ms",
+                               "plain_ms",
                                "cudnn_conv_sequence_ms", "device_ms",
                                "plain_device_ms",
                                "cudnn_conv_sequence_device_ms", "bound_ms",
@@ -868,7 +910,7 @@ TREE_DIR = os.path.join(HERE, "results", "nets", "hybrid-ac-tree-dynkcpt")
 TREE_CHECKPOINT = os.path.join(TREE_DIR, "net.npy.cz")
 TREE_FP32 = os.path.join(TREE_DIR, "net.npy")
 N_TREE_PASSES = 2  # passes over the test split per timed serving window
-N_TREE_WINDOWS = 5  # timed serving windows per capacity and k_cpt
+N_TREE_WINDOWS = 3  # timed serving windows per capacity and k_cpt
 EVAL_BATCH = 1024  # the batch of the trained tree's full-split evaluation
 
 
@@ -2399,6 +2441,7 @@ def zoo_train_phase(device):
     from mpnn_tpu_torch.models.steps import (Schedules, _step_pieces,
                                              init_training)
     from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
     _reset_modes()
     net = zoo_net()
     params, state, vel = init_training(net, 0, device)
@@ -2425,7 +2468,7 @@ def zoo_train_phase(device):
         config.set_stacked_tails(False)
         batch_ctx, loss_and_grads = _step_pieces(
             net, TRAIN_BATCH, Schedules(lr=λ_lrn, tau=τ_ds), 4, False)
-        remat = {}
+        remat, launches = {}, {}
         for policy in (None, "full", "dots"):
             config.set_remat(policy)
             gen = torch.Generator(device=device).manual_seed(0)
@@ -2433,10 +2476,18 @@ def zoo_train_phase(device):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
             base = torch.cuda.memory_allocated(device)
+            fused_mcm.launches = 0
             loss, _, _, grads = loss_and_grads(params, state, xb, yb, ctx)
             torch.cuda.synchronize()
+            launches[policy] = fused_mcm.launches
             peak = torch.cuda.max_memory_allocated(device)
             remat[policy] = (float(loss), grads, peak, peak - base)
+        # "dots" saves the stage operator's outputs: its backward
+        # relaunches nothing; "full" recomputes every stage.
+        check(launches["dots"] == launches[None] == per_fwd
+              and launches["full"] == 2 * per_fwd, "zoo_train remat: "
+              "launches %s, expected none = dots = %d, full = %d"
+              % (launches, per_fwd, 2 * per_fwd))
         rows = {}
         for policy in ("full", "dots"):
             e = tree_errs(remat[policy][1], remat[None][1], zero)
@@ -2446,10 +2497,12 @@ def zoo_train_phase(device):
                             "worst_leaf_rel_err": e["leaf"],
                             "loss": remat[policy][0],
                             "peak_bytes": remat[policy][2],
-                            "peak_bytes_above_start": remat[policy][3]}
+                            "peak_bytes_above_start": remat[policy][3],
+                            "launches": launches[policy]}
         rows["none"] = {"loss": remat[None][0],
                         "peak_bytes": remat[None][2],
-                        "peak_bytes_above_start": remat[None][3]}
+                        "peak_bytes_above_start": remat[None][3],
+                        "launches": launches[None]}
         out["remat"] = rows
     finally:
         _reset_modes()
@@ -2581,6 +2634,405 @@ def prep_files_phase(device, d):
             "fused_mcm_launches": launches}
 
 
+ADAPTIVE_CHECKPOINT = os.path.join(HERE, "results", "nets",
+                                   "hybrid-ac-dynkcpt", "net.npy")
+CPU_CANARY_BATCH = 64  # images the fp32 artifact serves on the CPU
+N_EXPORT_WINDOWS = 3  # timed windows of N_SERVE batches, artifact / direct
+PARITY_BATCH = 8  # test images of check_parity on the trained flagship
+# Loads and serves an artifact in a process that cannot import jax,
+# mpnn_tpu, or the port's models, utils and experiments; argv: artifact,
+# input batch (.npy), output (.npz), and the price for a dyn_k_cpt one.
+_ARTIFACT_CHILD = """import sys
+for m in ("jax", "mpnn_tpu", "mpnn_tpu_torch.models", "mpnn_tpu_torch.utils",
+          "mpnn_tpu_torch.experiments"):
+    sys.modules[m] = None
+import numpy as np, torch
+from mpnn_tpu_torch.export import serve_fn
+from mpnn_tpu_torch.ops.kernels import fused_mcm
+x = torch.as_tensor(np.load(sys.argv[2]), device="cuda")
+args = (x,) + tuple(torch.tensor(float(k), device="cuda")
+                    for k in sys.argv[4:])
+fused_mcm.launches = 0
+out = serve_fn(sys.argv[1])(*args)
+torch.cuda.synchronize()
+np.savez(sys.argv[3], launches=fused_mcm.launches,
+         **{k: v.cpu().numpy() for k, v in out.items()})
+"""
+
+
+def _same_outputs(label, got, want, tol=1e-5):
+    """An artifact's outputs against the direct engine's on the same batch:
+    exit_idx, ops and forced equal, probs within tol; returns the probs'
+    max abs difference."""
+    got = {k: np.asarray(v.float().cpu() if torch.is_tensor(v) else v)
+           for k, v in got.items()}
+    want = {k: v.float().cpu().numpy() for k, v in want.items()}
+    for k in ("exit_idx", "ops", "forced"):
+        check(np.array_equal(got[k], want[k]), "%s: %s differ on %d rows"
+              % (label, k, int((got[k] != want[k]).sum())))
+    err = float(np.abs(got["probs"] - want["probs"]).max())
+    check(err <= tol, "%s: probs differ by %g > %g" % (label, err, tol))
+    return err
+
+
+def _export_and_load(net, params, state, d, name, **kw):
+    """Trace, save and load an artifact: (callable, export seconds, file
+    bytes, load seconds)."""
+    from mpnn_tpu_torch import export as ex
+    t = time.perf_counter()
+    ep = ex.export_infer(net, params, state, **kw)
+    export_s = time.perf_counter() - t
+    path = os.path.join(d, name)
+    ex.save_artifact(ep, path)
+    t = time.perf_counter()
+    fn = ex.serve_fn(path)
+    load_s = time.perf_counter() - t
+    return fn, path, {"export_s": export_s, "bytes": os.path.getsize(path),
+                      "load_s": load_s}
+
+
+def _served(label, fn, direct, xs, per_batch, *price):
+    """Each batch of xs through the artifact (its launches counted from 0)
+    and the direct engine: the same outputs, per_batch launches a batch;
+    returns (max probs difference, mean ops, exit histogram)."""
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    errs, ops, exits = [], [], []
+    for x in xs:
+        fused_mcm.launches = 0
+        got = fn(x, *price)
+        torch.cuda.synchronize()
+        check(fused_mcm.launches == per_batch, "%s: %d launches a batch, "
+              "expected %d" % (label, fused_mcm.launches, per_batch))
+        errs.append(_same_outputs(label, got, direct(x, *price)))
+        ops.append(got["ops"].cpu().numpy())
+        exits.append(got["exit_idx"].cpu().numpy())
+    return (max(errs), float(np.concatenate(ops).mean()),
+            np.bincount(np.concatenate(exits)).tolist())
+
+
+def _rates(fns, x, *price):
+    """img/s of each callable: N_EXPORT_WINDOWS windows of N_SERVE batches,
+    the callables in turns; {name: (median, windows)}."""
+    rates = {name: [] for name in fns}
+    for _ in range(N_EXPORT_WINDOWS):
+        for name, fn in fns.items():
+            t = time.perf_counter()
+            for _ in range(N_SERVE):
+                fn(x, *price)
+            torch.cuda.synchronize()
+            rates[name].append(N_SERVE * x.shape[0]
+                               / (time.perf_counter() - t))
+    return {name: {"img_s": statistics.median(r), "window_values": r}
+            for name, r in rates.items()}
+
+
+def _child_serves(label, d, path, x, want, per_batch, *price):
+    """The artifact loaded and served on the card by _ARTIFACT_CHILD: its
+    outputs equal the direct engine's, with per_batch launches."""
+    import subprocess
+    np.save(os.path.join(d, "x.npy"), x.cpu().numpy())
+    out = os.path.join(d, "child.npz")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _ARTIFACT_CHILD, path,
+                        os.path.join(d, "x.npy"), out]
+                       + ["%r" % float(p) for p in price],
+                       cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                       capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t
+    check(r.returncode == 0, "%s: the artifact's process failed:\n%s"
+          % (label, r.stderr[-4000:]))
+    got = dict(np.load(out))
+    check(int(got.pop("launches")) == per_batch, "%s: the process launched "
+          "the kernel %s times" % (label, got.get("launches")))
+    return {"max_prob_err": _same_outputs(label, got, want),
+            "process_s": secs}
+
+
+def export_chain_phase(device, caps):
+    """The trained flagship exported at the serving batch in bf16 at
+    serve_bf16's calibrated capacities, saved, loaded and served against
+    the direct engine (the synthetic batches serve_phase serves), with
+    20 launches a batch; the same file served by a process that cannot
+    import jax or the port's model code; an fp32 export moved to the CPU
+    against the CPU engine on CPU_CANARY_BATCH images."""
+    import tempfile
+    from mpnn_tpu_torch.data import synth
+    from mpnn_tpu_torch.models.infer import make_routed_infer_fn
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.utils.serdes import read_net
+    from mpnn_tpu_torch import export as ex
+    B = BATCH
+    net, params, state, _ = read_net(CHECKPOINT, device)
+    h, w, c = net.hypers.x0_shape
+    data = synth.make_synthetic(n_tr=B, n_ts=B, h=h, w=w, c=c,
+                                n_cls=int(net.hypers.y_shape[0]), seed=0)
+    xs = [torch.as_tensor(data[k], device=device) for k in ("x0_ts",
+                                                            "x0_tr")]
+    per_batch = PER_FORWARD["chain"]
+    out = {"checkpoint": os.path.relpath(CHECKPOINT, HERE), "batch": B,
+           "capacities": caps, "precision": "bf16"}
+    with tempfile.TemporaryDirectory() as d:
+        config.set_compute_dtype(torch.bfloat16)
+        try:
+            fn, path, out["artifact"] = _export_and_load(
+                net, params, state, d, "chain.pt2", batch_size=B,
+                capacities=caps)
+            infer = make_routed_infer_fn(net, B, capacities=caps)
+
+            def direct(x):
+                return infer(params, state, x)
+            err, mean_ops, hist = _served("export_chain", fn, direct, xs,
+                                          per_batch)
+            out.update(max_prob_err=err, mean_ops=mean_ops, exit_hist=hist,
+                       launches_per_batch=per_batch,
+                       rates=_rates({"artifact": fn, "direct": direct},
+                                    xs[0]))
+            out["fresh_process"] = _child_serves(
+                "export_chain process", d, path, xs[0], direct(xs[0]),
+                per_batch)
+        finally:
+            config.set_compute_dtype(None)
+        # fp32, traced on the card, moved to the CPU and served there.
+        n = CPU_CANARY_BATCH
+        t = time.perf_counter()
+        ep = ex.export_infer(net, params, state, batch_size=n,
+                             capacities=caps)
+        art32 = {"export_s": time.perf_counter() - t}
+        path = os.path.join(d, "chain32.pt2")
+        ex.save_artifact(ep, path)
+        t = time.perf_counter()
+        canary = ex.serve_fn(path, "cpu")
+        art32.update(bytes=os.path.getsize(path),
+                     load_s=time.perf_counter() - t)
+    cnet, cp, cs, _ = read_net(CHECKPOINT, "cpu")
+    x = xs[0][:n].cpu()
+    got = {k: v.numpy() for k, v in canary(x).items()}
+    want = {k: v.numpy() for k, v in make_routed_infer_fn(
+        cnet, n, capacities=caps)(cp, cs, x).items()}
+    margins = router_margins(cnet, cp, cs, [x], cnet.hypers.k_cpt)
+    paths = tree_paths(cnet)
+    near_tie = np.array([(margins[e, paths[want["exit_idx"][e]]]
+                          < MARGIN_TIE).any() for e in range(n)])
+    same = got["exit_idx"] == want["exit_idx"]
+    check(not (~(same & (got["ops"] == want["ops"])) & ~near_tie).any(),
+          "export_chain cpu: exits differ outside router near-ties")
+    err = float(np.abs(got["probs"] - want["probs"])[same].max())
+    check(err <= 1e-4, "export_chain cpu: probs differ by %g" % err)
+    out["cpu_canary"] = {"batch": n, "precision": "fp32",
+                         "artifact": art32, "max_prob_err": err,
+                         "exit_mismatches": int((~same).sum()),
+                         "near_tie_examples": int(near_tie.sum())}
+    return out
+
+
+def export_adaptive_phase(device, data):
+    """The trained adaptive chain exported as one dyn_k_cpt artifact
+    (bf16, the serving batch, capacities calibrated at price 0 on the
+    train split of the rebuilt hybrid.npz), served on the first test
+    batch at each of the 8 prices of its registry entry against the
+    direct engine, 20 launches a batch; mean ops at the dearest price
+    at most that at price 0."""
+    import tempfile
+    from mpnn_tpu_torch.experiments import k_cpts
+    from mpnn_tpu_torch.models.infer import (calibrate_capacities,
+                                             make_routed_infer_fn)
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.utils.serdes import read_net
+    B = BATCH
+    net, params, state, _ = read_net(ADAPTIVE_CHECKPOINT, device)
+    check(net.hypers.dyn_k_cpt, "export_adaptive: not a dyn_k_cpt net")
+    x = torch.as_tensor(data["x0_ts"][:B], device=device)
+    x_cal = torch.as_tensor(data["x0_tr"][:B], device=device)
+    out = {"checkpoint": os.path.relpath(ADAPTIVE_CHECKPOINT, HERE),
+           "batch": B, "precision": "bf16"}
+    config.set_compute_dtype(torch.bfloat16)
+    try:
+        caps = calibrate_capacities(net, params, state, x_cal,
+                                    k_cpt=torch.tensor(0.0, device=device))
+        infer = make_routed_infer_fn(net, B, capacities=caps)
+
+        def direct(x, k):
+            return infer(params, state, x, k)
+        with tempfile.TemporaryDirectory() as d:
+            fn, _, out["artifact"] = _export_and_load(
+                net, params, state, d, "adaptive.pt2", batch_size=B,
+                capacities=caps, dyn_k_cpt=True)
+            prices = []
+            for k_cpt in k_cpts:
+                k = torch.tensor(k_cpt, device=device)
+                err, mean_ops, hist = _served(
+                    "export_adaptive k_cpt %g" % k_cpt, fn, direct, [x],
+                    PER_FORWARD["chain"], k)
+                prices.append({"k_cpt": k_cpt, "max_prob_err": err,
+                               "mean_ops": mean_ops, "exit_hist": hist})
+            out["rates_at_k_cpt"] = k_cpts[4]
+            out["rates"] = _rates({"artifact": fn, "direct": direct}, x,
+                                  torch.tensor(k_cpts[4], device=device))
+    finally:
+        config.set_compute_dtype(None)
+    check(prices[-1]["mean_ops"] <= prices[0]["mean_ops"],
+          "export_adaptive: mean ops at the dearest price %g > at price 0 "
+          "%g" % (prices[-1]["mean_ops"], prices[0]["mean_ops"]))
+    out.update(capacities=caps, per_k_cpt=prices,
+               launches_per_batch=PER_FORWARD["chain"])
+    return out
+
+
+def export_tree_phase(device, tree):
+    """The trained adaptive tree (tree_serve's) exported as one dyn_k_cpt
+    artifact (bf16, the serving batch, capacities calibrated at price 0),
+    served on the first test batch at each of its 8 prices against the
+    direct engine, 96 launches a batch; its export seconds."""
+    import tempfile
+    from mpnn_tpu_torch.experiments import k_cpts
+    from mpnn_tpu_torch.models.infer import (calibrate_capacities,
+                                             make_routed_infer_fn)
+    from mpnn_tpu_torch.ops import config
+    net, params, state, _, data = tree
+    B = BATCH
+    x = torch.as_tensor(data["x0_ts"][:B], device=device)
+    x_cal = torch.as_tensor(data["x0_tr"][:B], device=device)
+    out = {"checkpoint": os.path.relpath(TREE_CHECKPOINT, HERE),
+           "batch": B, "precision": "bf16"}
+    config.set_compute_dtype(torch.bfloat16)
+    try:
+        caps = calibrate_capacities(net, params, state, x_cal,
+                                    k_cpt=torch.tensor(0.0, device=device))
+        infer = make_routed_infer_fn(net, B, capacities=caps)
+
+        def direct(x, k):
+            return infer(params, state, x, k)
+        with tempfile.TemporaryDirectory() as d:
+            fn, _, out["artifact"] = _export_and_load(
+                net, params, state, d, "tree.pt2", batch_size=B,
+                capacities=caps, dyn_k_cpt=True)
+            prices = []
+            for k_cpt in k_cpts:
+                err, mean_ops, hist = _served(
+                    "export_tree k_cpt %g" % k_cpt, fn, direct, [x],
+                    PER_FORWARD["tree"], torch.tensor(k_cpt, device=device))
+                prices.append({"k_cpt": k_cpt, "max_prob_err": err,
+                               "mean_ops": mean_ops})
+    finally:
+        config.set_compute_dtype(None)
+    out.update(capacities=caps, per_k_cpt=prices,
+               launches_per_batch=PER_FORWARD["tree"])
+    return out
+
+
+def parity_phase(device, data):
+    """check_parity and check_grad_parity of the trained flagship on
+    PARITY_BATCH test images of the rebuilt hybrid.npz, fp32 on the kernel
+    path (TF32 off), against the float64 oracle: both ok, 20 launches a
+    forward; under a bf16 compute dtype check_parity must fail (the
+    negative control); then `python -m mpnn_tpu_torch.check_parity
+    --grads` as a process on the same checkpoint and images: exit 0 and
+    PARITY OK."""
+    import subprocess
+    import tempfile
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    from mpnn_tpu_torch.paritycheck import check_grad_parity, check_parity
+    from mpnn_tpu_torch.utils.serdes import read_net
+    n = PARITY_BATCH
+    net, params, state, _ = read_net(CHECKPOINT, device)
+    x0, y = data["x0_ts"][:n], data["y_ts"][:n]
+    config.set_compute_dtype(None)
+    reports = {}
+    for name, fn in (("forward", check_parity),
+                     ("grad", check_grad_parity)):
+        fused_mcm.launches = 0
+        t = time.perf_counter()
+        rep = fn(net, params, state, x0, y)
+        torch.cuda.synchronize()
+        rep["seconds"] = time.perf_counter() - t
+        rep["launches"] = fused_mcm.launches
+        check(rep["ok"], "parity %s: %s" % (name, json.dumps(rep)))
+        check(rep["launches"] == PER_FORWARD["chain"], "parity %s: %d "
+              "launches" % (name, rep["launches"]))
+        reports[name] = rep
+    config.set_compute_dtype(torch.bfloat16)
+    try:
+        neg = check_parity(net, params, state, x0, y)
+    finally:
+        config.set_compute_dtype(None)
+    check(not neg["ok"], "parity: the bf16 negative control passed")
+    reports["bf16_negative_control"] = {
+        "ok": neg["ok"], "failed": sorted(k for k, v in neg["checks"].items()
+                                          if not v["ok"])}
+    with tempfile.TemporaryDirectory() as d:
+        arch = os.path.join(d, "parity.npz")
+        np.savez(arch, {k: data[k][:n] for k in ("x0_tr", "x0_ts", "y_tr",
+                                                  "y_ts")}
+                 | {"m_sym": data["m_sym"]})
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "mpnn_tpu_torch.check_parity", CHECKPOINT,
+                            "--data", arch, "--batch-size", str(n),
+                            "--grads"], cwd=HERE,
+                           env=dict(os.environ, PYTHONPATH=HERE),
+                           capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    check(r.returncode == 0 and lines and lines[-1] == "PARITY OK",
+          "parity: check_parity process exit %d, last line %r\n%s"
+          % (r.returncode, lines[-1] if lines else None, r.stderr[-4000:]))
+    reports["cli"] = {"exit": r.returncode, "last_line": lines[-1],
+                      "seconds": time.perf_counter() - t}
+    reports.update(checkpoint=os.path.relpath(CHECKPOINT, HERE), batch=n,
+                   data="hybrid.npz rebuilt, test split")
+    return reports
+
+
+def compact_phase(device, tree):
+    """The trained tree's compact archive read, rewritten by the port's
+    write_compact into a temporary directory and read back: every array
+    equal bit for bit; the net decoded from the rewritten archive serves
+    one batch (fp32, dense, price k_cpts[4]) with the original's exits,
+    its params equal to the original's bit for bit, probs within 1e-5."""
+    import tempfile
+    from mpnn_tpu_torch.experiments import k_cpts
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.utils.serdes import (compact_src_sha, decode_net,
+                                             read_compact, write_compact)
+    from mpnn_tpu_torch.utils.tree import tree_leaves
+    net, params, state, _, data = tree
+    t = time.perf_counter()
+    rec = read_compact(TREE_CHECKPOINT)
+    read_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        manifest = write_compact(d, rec, src_sha="0" * 64)
+        write_s = time.perf_counter() - t
+        back = read_compact(d)
+        sha = compact_src_sha(d)
+    check(_records_equal(back, rec) and sha == "0" * 64,
+          "compact: the rewritten archive does not read back bit for bit")
+    net2, p2, s2, _ = decode_net(back, device)
+    same_params = all(torch.equal(u, v) for u, v in zip(
+        tree_leaves((params, state)), tree_leaves((p2, s2))))
+    x = torch.as_tensor(data["x0_ts"][:BATCH], device=device)
+    config.set_compute_dtype(None)
+    a = serve(net, params, state, x, 1.0, k_cpt=k_cpts[4])
+    b = serve(net2, p2, s2, x, 1.0, k_cpt=k_cpts[4])
+    exit_mismatches = int((a["exit_idx"] != b["exit_idx"]).sum())
+    prob_err = float(np.abs(a["probs"] - b["probs"]).max())
+    # The same params in other allocations: cuBLAS may take another
+    # kernel for another alignment, so probs may move by an fp32 rounding.
+    check(same_params and exit_mismatches == 0 and prob_err <= 1e-5,
+          "compact: the rewritten net (params equal: %s) serves "
+          "differently: %d exits differ, probs by %g"
+          % (same_params, exit_mismatches, prob_err))
+    return {"checkpoint": os.path.relpath(TREE_CHECKPOINT, HERE),
+            "read_s": read_s, "write_s": write_s,
+            "params_equal": same_params, "exit_mismatches": exit_mismatches,
+            "max_prob_err": prob_err, "parts": len(manifest["parts"]),
+            "bytes": sum(p["bytes"] for p in manifest["parts"]),
+            "committed_bytes": sum(
+                os.path.getsize(os.path.join(TREE_CHECKPOINT, f))
+                for f in os.listdir(TREE_CHECKPOINT) if f.startswith("part-")),
+            "served_examples": BATCH}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2687,6 +3139,17 @@ def main():
     serve_tree, tree = tree_serve_phase(device)
     phase("tree_serve", **serve_tree)
     phase("tree_desc_vs_jax_files", **tree_desc_phase(device, tree))
+
+    # 7e. serving artifacts through torch.export (each artifact's
+    # launches counted from 0 per served batch), the parity harness
+    # against the float64 oracle, and the compact archive's writer.
+    t_new = time.perf_counter()
+    phase("export_chain", **export_chain_phase(device, caps))
+    phase("export_adaptive", **export_adaptive_phase(device, tree[4]))
+    phase("export_tree", **export_tree_phase(device, tree))
+    phase("parity", **parity_phase(device, tree[4]))
+    phase("compact", **compact_phase(device, tree),
+          export_parity_compact_s=time.perf_counter() - t_new)
     del tree
 
     # 8. the training CLI's path, serial and --vmap-sweep, its launches

@@ -137,15 +137,15 @@ def _drop_stream(net, gen, t, xb):
     return rng, net.dropout_masks(rng, xb.shape[0], xb.device)
 
 
-# Ops whose outputs the "dots" policy saves: convs, matmuls (and the
-# outputs `fused_mcm` allocates, `kernels.output_alloc`).
+# Ops whose outputs the "dots" policy saves: convs and matmuls, and the
+# MultiscaleConvMax stage's operator (`kernels.MCM_STAGE`).
 _DOTS = ("convolution", "mm", "addmm", "bmm", "baddbmm")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
     from torch.utils.checkpoint import CheckpointPolicy
-    from ..ops import kernels
-    if op.overloadpacket.__name__ in _DOTS or kernels.output_alloc:
+    from ..ops.kernels import MCM_STAGE
+    if op.overloadpacket.__name__ in _DOTS or op is MCM_STAGE:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 

@@ -30,34 +30,33 @@ far, and the next level out multiplies its width in, so 8 nets x 8 tails
 are one launch of 64. The backward under `vmap` takes torch's conv
 batching rule (a grouped conv), the counterpart of XLA's.
 
+The forward reaches either device through one registered operator,
+`torch.ops.mpnn_tpu_torch.mcm_stage` (`MCM_STAGE`), with a fake
+implementation that gives its outputs' shapes and dtype. So tracing
+(`torch.export`, see `mpnn_tpu_torch/export.py`) records the stage as one
+node, where the ctypes launch on raw data pointers would be opaque, and
+selective checkpointing (`models/steps.py:_dots_policy`) sees and saves
+its outputs. The compute dtype is an argument of the operator, fixed when
+it is called, so an exported program computes in the dtype it was traced
+in whatever the loading process has set. The device check runs before
+the operator: tensors that are neither all on the CPU nor all on one CUDA
+device (meta tensors, say) raise here instead of reaching the fake.
+
 `fused_mcm.launches` counts kernel launches (one per output scale, of one
 net or of all nets); `fused_mcm.net_launches` counts those of the net
-axis alone."""
+axis alone. A loaded exported program launches through the same counter."""
 
 import math
+from typing import List
 
 import torch
 
 from . import _build, config
-from .layers import _pool2, conv_same
+from .layers import _conv_nhwc, _pool2
 
-__all__ = ["fused_mcm", "mcm_ref", "_pack_w"]
+__all__ = ["fused_mcm", "mcm_ref", "_pack_w", "MCM_STAGE"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-# True while `_forward` allocates a kernel output: the "dots" remat
-# policy (`models/steps.py:_dots_policy`) saves what is allocated then,
-# since the ctypes launch that fills it is invisible to the dispatcher.
-output_alloc = False
-
-
-def _new_output(shape, dtype, device):
-    global output_alloc
-    output_alloc = True
-    try:
-        return torch.empty(shape, dtype=dtype, device=device)
-    finally:
-        output_alloc = False
 
 
 def _pack_w(w):
@@ -67,16 +66,22 @@ def _pack_w(w):
     return w.reshape(kh * kw * ci, co)
 
 
-def mcm_ref(xs, whs, wvs, bs):
+def mcm_ref(xs, whs, wvs, bs, dtype=None):
     """Plain PyTorch version of the stage (the counterpart of `mcm_xla`):
-    cuDNN / CPU convs plus a max-pool, under the compute dtype policy."""
+    cuDNN / CPU convs plus a max-pool, under the compute dtype policy, or
+    with the inputs and weights cast to `dtype` where one is given."""
     L = len(whs)
+    cast = config.cast_compute if dtype is None else (
+        lambda t: t.to(dtype))
     kept = xs[len(xs) - L:]
-    out0 = conv_same(kept[0], whs[0])
+
+    def conv(x, w):
+        return _conv_nhwc(cast(x), cast(w))
+
+    out0 = conv(kept[0], whs[0])
     outs = [out0 + bs[0].to(out0.dtype)]
     for j in range(1, L):
-        oj = (conv_same(kept[j], whs[j])
-              + conv_same(_pool2(outs[j - 1]), wvs[j - 1]))
+        oj = conv(kept[j], whs[j]) + conv(_pool2(outs[j - 1]), wvs[j - 1])
         outs.append(oj + bs[j].to(oj.dtype))
     return outs
 
@@ -135,8 +140,10 @@ class _FusedMCM(torch.autograd.Function):
 
     @staticmethod
     def forward(L, supp, n_nets, batched, *tensors):
-        return tuple(_forward(*_split(L, tensors), supp, n_nets=n_nets,
-                              batched=list(batched) or None))
+        _device_of(tensors)
+        cdt = config.compute_dtype or torch.float32
+        return tuple(MCM_STAGE(list(tensors), L, supp, n_nets,
+                               list(batched) or [False] * len(tensors), cdt))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -211,9 +218,48 @@ def _net_slices(t, batched):
     return t, stride, shape
 
 
-def _forward(kept, whs, wvs, bs, supp, n_nets=0, batched=None):
-    """The stage's outputs, without autograd: `mcm_ref` if every tensor is
-    on the CPU, else the kernel, one launch per output scale.
+def _device_of(tensors):
+    """The device of the stage's tensors: the CPU, or the one CUDA device
+    they all lie on; anything else raises."""
+    dev = tensors[0].device
+    if all(t.device.type == "cpu" for t in tensors):
+        return dev
+    _check(dev.type == "cuda" and all(t.device == dev for t in tensors),
+           "tensors must all be on the CPU or all on one CUDA device, got "
+           "%s" % sorted({str(t.device) for t in tensors}))
+    return dev
+
+
+@torch.library.custom_op("mpnn_tpu_torch::mcm_stage", mutates_args=())
+def _mcm_stage(tensors: List[torch.Tensor], L: int, supp: int, n_nets: int,
+               batched: List[bool], dtype: torch.dtype) -> List[torch.Tensor]:
+    """The stage's forward as an operator: the flat tensors of
+    `_FusedMCM`, the outputs in `dtype` (`_forward`)."""
+    return _forward(*_split(L, tensors), supp, dtype, n_nets=n_nets,
+                    batched=batched)
+
+
+@_mcm_stage.register_fake
+def _(tensors, L, supp, n_nets, batched, dtype):
+    """Empty outputs of the stage's shapes: (B, H, W, Cout) per output
+    scale, (n_nets, B, H, W, Cout) with a net axis."""
+    kept, whs, _, _ = _split(L, tensors)
+    lead = (n_nets,) if n_nets else ()
+    outs = []
+    for x, b, w in zip(kept, batched, whs):
+        shape = x.shape[1:] if b and n_nets else x.shape
+        outs.append(x.new_empty(lead + tuple(shape[:-1]) + (w.shape[-1],),
+                                dtype=dtype))
+    return outs
+
+
+MCM_STAGE = torch.ops.mpnn_tpu_torch.mcm_stage.default
+
+
+def _forward(kept, whs, wvs, bs, supp, cdt, n_nets=0, batched=None):
+    """The stage's outputs in the compute dtype `cdt`, without autograd:
+    `mcm_ref` if every tensor is on the CPU, else the kernel, one launch
+    per output scale.
 
     With n_nets = N (under vmap), the tensors flagged in `batched` carry
     the nets on a leading axis and the others are shared by every net; the
@@ -222,20 +268,16 @@ def _forward(kept, whs, wvs, bs, supp, n_nets=0, batched=None):
     L = len(whs)
     tensors = kept + whs + wvs + bs
     batched = batched or [False] * len(tensors)
-    if all(t.device.type == "cpu" for t in tensors):
+    dev = _device_of(tensors)
+    if dev.type == "cpu":
         if not n_nets:
-            return mcm_ref(kept, whs, wvs, bs)
+            return mcm_ref(kept, whs, wvs, bs, cdt)
         per_net = [mcm_ref(*_split(L, [t[i] if b else t for t, b in
-                                       zip(tensors, batched)]))
+                                       zip(tensors, batched)]), cdt)
                    for i in range(n_nets)]
         return [torch.stack(o) for o in zip(*per_net)]
-    dev = kept[0].device
-    _check(dev.type == "cuda" and all(t.device == dev for t in tensors),
-           "tensors must all be on the CPU or all on one CUDA device, got "
-           "%s" % sorted({str(t.device) for t in tensors}))
     _check(supp == 3, "the kernel's taps are compiled for 3x3 (supp=%r)"
            % (supp,))
-    cdt = config.compute_dtype or torch.float32
     _check(cdt in _DTYPE_CODE, "compute dtype %s not supported" % cdt)
     for x, b in zip(kept, batched):
         _check(x.dtype in _DTYPE_CODE, "input dtype %s not supported"
@@ -280,17 +322,20 @@ def _forward(kept, whs, wvs, bs, supp, n_nets=0, batched=None):
         tail = (B, H, W, Cin, Cprev, Cout, _DTYPE_CODE[cdt])
         if n_nets:
             s_out = _padded_stride(B * H * W * Cout, x.element_size())
-            out = _new_output((N, s_out), cdt, dev)
+            out = torch.empty((N, s_out), dtype=cdt, device=dev)
             _launch_nets(dev, *args, out.data_ptr(), N, s_x, s_wh, s_prev,
                          s_wv, s_b, s_out, *tail)
         else:
             s_out = 0
-            out = _new_output(oshape, cdt, dev)
+            out = torch.empty(oshape, dtype=cdt, device=dev)
             _launch(dev, *args, out.data_ptr(), *tail)
         outs.append((out, s_out, oshape))
     if not n_nets:
         return [o for o, _, _ in outs]
-    return [o[:, :math.prod(s)].unflatten(1, s) for o, _, s in outs]
+    # Contiguous, as the fake promises (a copy only where a net's output
+    # was padded to 16 bytes).
+    return [o[:, :math.prod(s)].unflatten(1, s).contiguous()
+            for o, _, s in outs]
 
 
 fused_mcm.launches = 0

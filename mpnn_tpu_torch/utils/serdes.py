@@ -43,7 +43,8 @@ from ..models import sr as sr_lib
 from .tree import tree_map
 
 __all__ = ["encode_net", "decode_net", "write_net", "read_net",
-           "read_compact", "atomic_save", "from_numpy_tree"]
+           "read_compact", "write_compact", "compact_src_sha", "atomic_save",
+           "from_numpy_tree"]
 
 # Parameter names that are run-time state (BatchNorm running statistics).
 STATE_KEYS = frozenset({"m_avg", "v_avg"})
@@ -253,13 +254,129 @@ def _bf16_bits_to_f32(obj):
     return obj
 
 
+_COMPACT_MANIFEST = "MANIFEST.json"
+
+
+class _BF16:
+    """Stands for `ml_dtypes.bfloat16` in a compact archive's pickle, which
+    names it as a global (`_CompactPickler`) without importing it."""
+
+
+class _BF16Bits:
+    """The bfloat16 bits of a float array (uint16), pickled as
+    `bits.view(ml_dtypes.bfloat16)`: a bfloat16 array to a reader with
+    ml_dtypes (`mpnn_tpu`'s `read_compact`), the uint16 bits to
+    `_CompactUnpickler`."""
+
+    def __init__(self, bits):
+        self.bits = bits
+
+
+class _CompactPickler(pickle._Pickler):
+    """pickle's Python pickler, which lets `save_global` be overridden:
+    `_BF16` is written as the global ml_dtypes.bfloat16, which this
+    process need not be able to import."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, _BF16Bits):
+            return obj.bits.view, (_BF16,)
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        if obj is not _BF16:
+            return super().save_global(obj, name)
+        self.save("ml_dtypes")
+        self.save("bfloat16")
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def _bf16_bits(a):
+    """The bfloat16 bits of a float array, rounded to nearest even through
+    float32 as ml_dtypes casts (NaNs stay quiet NaNs)."""
+    f = np.ascontiguousarray(a, np.float32)
+    u = f.view(np.uint32)
+    bits = ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))
+            >> np.uint32(16)).astype(np.uint16)
+    nan = np.isnan(f)
+    bits[nan] = ((u[nan] >> np.uint32(16)) | np.uint32(0x40)).astype(
+        np.uint16)
+    return bits
+
+
+def _floats_to_bf16(obj):
+    """Every float ndarray of an encoded record as `_BF16Bits`, as
+    `mpnn_tpu`'s `_cast_record_floats` casts them to bfloat16."""
+    if isinstance(obj, dict):
+        return {k: _floats_to_bf16(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        out = [_floats_to_bf16(v) for v in obj]
+        return out if isinstance(obj, list) else tuple(out)
+    if isinstance(obj, np.ndarray) and obj.dtype.kind == "f":
+        return _BF16Bits(_bf16_bits(obj))
+    return obj
+
+
+def write_compact(dirpath, record, *, part_bytes=7 << 20, src_sha=None):
+    """Write an encoded net record as a compact archive directory (the
+    counterpart of `mpnn_tpu`'s, without ml_dtypes): zlib of the pickled
+    record with its floats cast to bfloat16, split into part-NN files of
+    at most `part_bytes` each, and a MANIFEST.json with the sha256 of the
+    whole; every file through a temporary and `os.replace`, and the parts
+    of an earlier, larger archive at `dirpath` removed. `src_sha` (hex)
+    records the hash of the source checkpoint, so re-archiving an
+    unchanged source can be skipped (`compact_src_sha`). Both packages'
+    `read_compact` read it. Returns the manifest."""
+    buf = io.BytesIO()
+    _CompactPickler(buf, protocol=4).dump(_floats_to_bf16(record))
+    blob = zlib.compress(buf.getvalue(), level=6)
+    os.makedirs(dirpath, exist_ok=True)
+    parts = []
+    for i in range(0, max(1, -(-len(blob) // part_bytes))):
+        chunk = blob[i * part_bytes:(i + 1) * part_bytes]
+        name = "part-%02d" % i
+        tmp = os.path.join(dirpath, name + ".tmp")
+        with open(tmp, "wb") as f:
+            f.write(chunk)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(dirpath, name))
+        parts.append({"name": name, "bytes": len(chunk)})
+    manifest = {"format": "mpnn-compact-v1", "codec": "zlib+pickle",
+                "float_dtype": "bfloat16", "parts": parts,
+                "sha256": hashlib.sha256(blob).hexdigest(),
+                "src_sha256": src_sha}
+    # Stale parts of an earlier (larger) archive at the same path would
+    # corrupt reassembly.
+    names = {p["name"] for p in parts}
+    for name in os.listdir(dirpath):
+        if (name.startswith("part-") and not name.endswith(".tmp")
+                and name not in names):
+            os.remove(os.path.join(dirpath, name))
+    tmp = os.path.join(dirpath, _COMPACT_MANIFEST + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1)
+    os.replace(tmp, os.path.join(dirpath, _COMPACT_MANIFEST))
+    return manifest
+
+
+def compact_src_sha(dirpath):
+    """The source checkpoint's sha256 recorded in a compact archive, or
+    None (no archive, or none recorded)."""
+    try:
+        with open(os.path.join(dirpath, _COMPACT_MANIFEST)) as f:
+            return json.load(f).get("src_sha256")
+    except (OSError, ValueError):
+        return None
+
+
 def read_compact(dirpath):
     """The record of a compact archive directory (`mpnn_tpu`'s
     `write_compact`: zlib of the pickled record with its floats cast to
     bfloat16, split into part-NN files, a MANIFEST.json with the sha256),
     its floats back in float32, as `mpnn_tpu`'s `read_compact` returns
     it; decode it with `decode_net`."""
-    with open(os.path.join(dirpath, "MANIFEST.json")) as f:
+    with open(os.path.join(dirpath, _COMPACT_MANIFEST)) as f:
         manifest = json.load(f)
     if manifest["format"] != "mpnn-compact-v1":
         raise ValueError("unknown compact format %r" % manifest["format"])

@@ -69,7 +69,10 @@ def test_import_with_jax_blocked():
              "mpnn_tpu_torch.data.prep, mpnn_tpu_torch.models.sr, "
              "mpnn_tpu_torch.models.critic, mpnn_tpu_torch.utils.desc, "
              "mpnn_tpu_torch.ops.layers, mpnn_tpu_torch.ops.config, "
-             "mpnn_tpu_torch.train_adaptive, mpnn_tpu_torch.models.net; "
+             "mpnn_tpu_torch.train_adaptive, mpnn_tpu_torch.models.net, "
+             "mpnn_tpu_torch.export, mpnn_tpu_torch.export_net, "
+             "mpnn_tpu_torch.oracle, mpnn_tpu_torch.paritycheck, "
+             "mpnn_tpu_torch.check_parity; "
              "from mpnn_tpu_torch.ops import (Conv, MaxPool, GlobalMaxPool, "
              "MultiscaleLLN, Dropout, SquaredError, ActivityError, "
              "SuperclassCrossEntropyError); "
@@ -119,7 +122,9 @@ def test_train_bench_cpu_with_jax_blocked(tmp_path):
 @pytest.mark.parametrize("entry,args", [
     ("infer_bench", ["--batch-size", "8", "--n-batches", "1"]),
     ("train_bench", ["--batch-size", "8", "--n-steps", "1"]),
-    ("train", ["synth-ac", "--n-iter", "1", "--data-root", "/nonexistent"])])
+    ("train", ["synth-ac", "--n-iter", "1", "--data-root", "/nonexistent"]),
+    ("export_net", ["/nonexistent/net.npy", "/nonexistent/net.pt2"]),
+    ("check_parity", ["/nonexistent/net.npy"])])
 def test_entry_point_refuses_cpu_unless_asked(entry, args):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
@@ -142,8 +147,8 @@ def test_chip_smoke_refuses_without_gpu():
 def test_ignore_lists_keep_served_checkpoint():
     """.gitignore's results/ block and .chiprunignore list the same paths,
     and neither drops the checkpoints that chip_smoke.py serves: the
-    flagship chain and the adaptive tree's compact archive with the
-    descriptor files of its training."""
+    flagship chain, the adaptive chain, and the adaptive tree's compact
+    archive with the descriptor files of its training."""
     def results_entries(name):
         with open(os.path.join(REPO, name), encoding="utf-8") as f:
             return [ln.strip() for ln in f
@@ -153,6 +158,7 @@ def test_ignore_lists_keep_served_checkpoint():
     assert git and git == chip
     tree = "results/nets/hybrid-ac-tree-dynkcpt/"
     for served in ["results/nets/hybrid-ac/0004.npy",
+                   "results/nets/hybrid-ac-dynkcpt/net.npy",
                    tree + "net.npy.cz/MANIFEST.json",
                    tree + "net.npy.cz/part-00", tree + "net.npy.cz/part-01"
                    ] + [tree + "%.4i-stats.npy" % i for i in range(8)]:

@@ -99,3 +99,82 @@ def test_read_net_refuses_cuda_without_gpu():
         pytest.skip("this host has a GPU")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_read_net(CKPT)
+
+
+# write_compact: the port writes compact archives without ml_dtypes, and
+# mpnn_tpu's read_compact reads them.
+
+TREE_COMPACT = os.path.join(os.path.dirname(__file__), "..", "results",
+                            "nets", "hybrid-ac-tree-dynkcpt", "net.npy.cz")
+
+
+def _same_record(a, b):
+    """Equal records: the same structure and types, arrays equal bit for
+    bit with the same dtype."""
+    assert type(a) is type(b), (type(a), type(b))
+    if isinstance(a, dict):
+        assert list(a) == list(b)
+        for k in a:
+            _same_record(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for u, v in zip(a, b):
+            _same_record(u, v)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    else:
+        assert a == b
+
+
+def test_write_compact_reads_in_jax_as_jax_writes_it(tmp_path):
+    """The flagship checkpoint's record, archived by the port and by
+    mpnn_tpu: mpnn_tpu's read_compact returns the same record from both
+    (its floats rounded to bfloat16 to nearest even, as ml_dtypes casts),
+    and so does the port's."""
+    from mpnn_tpu.utils import serdes as jserdes
+    from mpnn_tpu_torch.utils import serdes as tserdes
+    rec = np.load(CKPT, allow_pickle=True)[()]
+    tserdes.write_compact(str(tmp_path / "t"), rec)
+    jserdes.write_compact(str(tmp_path / "j"), rec)
+    want = jserdes.read_compact(str(tmp_path / "j"))
+    _same_record(jserdes.read_compact(str(tmp_path / "t")), want)
+    _same_record(tserdes.read_compact(str(tmp_path / "t")), want)
+    w = rec["root"]["sinks"][0]["comps"][0]["params"]["w_horz_0"]
+    got = tserdes.read_compact(str(tmp_path / "t"))[
+        "root"]["sinks"][0]["comps"][0]["params"]["w_horz_0"]
+    assert not np.array_equal(got, w)  # rounded ...
+    np.testing.assert_allclose(got, w, rtol=2 ** -8, atol=0)  # ... to bf16
+
+
+def test_write_compact_parts_stale_parts_and_src_sha(tmp_path):
+    """Small part_bytes split the archive into parts under that size; a
+    rewrite with fewer parts removes the stale ones; compact_src_sha
+    returns the sha given, and None where there is no archive."""
+    from mpnn_tpu_torch.utils.serdes import (compact_src_sha, read_compact,
+                                             write_compact)
+    rec = np.load(CKPT, allow_pickle=True)[()]
+    d = str(tmp_path / "cz")
+    assert compact_src_sha(d) is None
+    m = write_compact(d, rec, part_bytes=1 << 20, src_sha="ab12")
+    assert len(m["parts"]) >= 3
+    assert all(p["bytes"] <= 1 << 20 for p in m["parts"])
+    assert sorted(os.listdir(d)) == sorted(
+        [p["name"] for p in m["parts"]] + ["MANIFEST.json"])
+    assert compact_src_sha(d) == "ab12"
+    first = read_compact(d)
+    m2 = write_compact(d, rec, src_sha="cd34")
+    assert [p["name"] for p in m2["parts"]] == ["part-00"]
+    assert sorted(os.listdir(d)) == ["MANIFEST.json", "part-00"]
+    assert compact_src_sha(d) == "cd34" and m2["sha256"] == m["sha256"]
+    _same_record(read_compact(d), first)
+
+
+def test_compact_round_trip_of_the_trained_tree_is_exact(tmp_path):
+    """The trained adaptive tree's committed archive, read, rewritten by
+    the port and read back: every array bit for bit (its floats are
+    bfloat16 values already)."""
+    from mpnn_tpu_torch.utils.serdes import read_compact, write_compact
+    rec = read_compact(TREE_COMPACT)
+    write_compact(str(tmp_path / "cz"), rec)
+    _same_record(read_compact(str(tmp_path / "cz")), rec)

@@ -533,3 +533,33 @@ def test_remat_gradients_equal_plain(modes, policy, stacked):
                     tree_leaves((ref[1], ref[3]))):
         assert float((a - b).abs().max()) <= TOL * max(
             1.0, float(b.abs().max()))
+
+
+def test_dots_remat_saves_the_stage_instead_of_recomputing_it(modes,
+                                                              monkeypatch):
+    """Under remat "dots" the MultiscaleConvMax operator's outputs are
+    saved (`steps._dots_policy` names `kernels.MCM_STAGE`), so the
+    backward's recompute does not run the stage again: the stage's plain
+    version is called as often as with no remat (each forward once, each
+    backward once), where "full" recomputes it."""
+    from mpnn_tpu_torch.ops import kernels
+    net = zoo_chain(T, lam=0.5)
+    params, state, _ = tsteps.init_training(net, seed=2, device="cpu")
+    x, y = (torch.as_tensor(a) for a in _batch())
+    batch_ctx, loss_and_grads = tsteps._step_pieces(
+        net, B, tsteps.Schedules(**SCHED), 0, True)
+    xb, yb, ctx = batch_ctx(0, torch.Generator().manual_seed(9), x, y,
+                            torch.zeros(10), None)
+    calls = []
+    plain = kernels.mcm_ref
+    monkeypatch.setattr(kernels, "mcm_ref",
+                        lambda *a: calls.append(1) or plain(*a))
+    counts = {}
+    for policy in (None, "dots", "full"):
+        tconfig.set_remat(policy)
+        n = len(calls)
+        loss_and_grads(params, state, xb, yb, ctx)
+        counts[policy] = len(calls) - n
+    n_stages = 3
+    assert counts == {None: 2 * n_stages, "dots": 2 * n_stages,
+                      "full": 3 * n_stages}
