@@ -137,8 +137,8 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               dense and at capacities calibrated on the train split: fp32
               through the kernel against mcm_ref (probs within 1e-4, the
               same exits, ops and forced counts outside router near-ties
-              on the example's path), then bf16 timed (3 windows of 2
-              passes over the padded test split, dense and routed in
+              on the example's path), then bf16 timed (3 windows of 1
+              pass over the padded test split, dense and routed in
               turns; the kernel's count from 0), with the bf16 exits that
               differ from fp32's. tree_desc_vs_jax_files prints, per
               k_cpt, net_desc of that tree through the kernel (fp32, eval
@@ -194,14 +194,14 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               net 4's final descriptor from the sweep's vmapped
               evaluation through the kernel against net_desc of its
               checkpoint through mcm_ref. synth-ac-tree net 4 and
-              synth-ac-tree --vmap-sweep run to 20 under the same checks
+              synth-ac-tree --vmap-sweep run to 10 under the same checks
               (96 launches per forward). Prints each run's seconds and
               img/s over training alone and over training, evaluation and
               writes.
 9. adaptive_cli -- `python -m mpnn_tpu_torch.train_adaptive` in processes
-              of its own (ADAPTIVE_RUNS: synth-ac-tree-dynkcpt to 20 with
-              t_log 10 and --stats-log, resumed to 30, and
-              synth-cr-dynkcpt to 20; then the first run again with
+              of its own (ADAPTIVE_RUNS: synth-ac-tree-dynkcpt to 10 with
+              t_log 5 and --stats-log, resumed to 15, and
+              synth-cr-dynkcpt to 10; then the first run again with
               --stacked-tails into another output root): the files (the
               stacked run's file set the serial run's), net.npy read back
               bit for bit with its step, the resume's start, each
@@ -253,6 +253,35 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               hybrid-ac --net 4` to 20 steps from the hybrid.npz it wrote,
               its launches checked the same way; the six phases' seconds.
 
+16. dp_train -- the flagship at k_cpts[4], global batch 128, fp32, over a
+              data mesh of 2 ranks, each a process of its own on the card
+              (gloo: NCCL refuses two ranks on one GPU), 64 rows each:
+              one step against the single-process kernel step at the
+              step gates, the ranks' params equal after it, 20 launches a
+              forward on each rank; then 2 windows of 10 steps: img/s over
+              the global batch, all-reduces a step and their host time,
+              each rank's launches counted from 0 in its process. The
+              kernel's eight stages at batch 64 against mcm_ref and
+              float64.
+17. dp_nccl -- this process as a world of one rank over NCCL (its data
+              axis's all-reduces run): one step against the meshless step
+              at the step gates, and which parts are equal bit for bit.
+18. sweep_mesh -- `python -m mpnn_tpu_torch.train synth-ac --vmap-sweep
+              --mesh 2x1` (the CLI starts 2 ranks, 4 nets each; started
+              together with mesh_cli's run) against the same meshless
+              sweep in this process, one step on the small archive: every member's files, params at the step
+              gates, descriptors within 1e-4 x max(1, |stat|), each log
+              written once, each rank's net-axis launches (its closing
+              JSON line) = 20 x (steps + eval batches); the net axis at 4
+              nets x 128 against mcm_ref.
+19. mesh_cli -- `python -m torch.distributed.run --nproc-per-node 2 -m
+              mpnn_tpu_torch.train synth-ac --net 4 --multihost --mesh
+              auto` against `train synth-ac --net 4` in this process, the
+              same checks.
+20. sweep_remat -- one step of the 8-net sweep under remat "full" and
+              "dots" against none at the step gates: launches (40 / 20 /
+              20 a loss and gradient) and peak device memory.
+
 Then one {"kernels": [...]} line, the kernel (bf16), its fp32 branch
 (launches on the fp32 training main path) and its net axis (with the
 training main paths' launches in `train_launches`, `sweep_launches` and
@@ -260,10 +289,13 @@ the CLI path's in `train_cli_launches`, `train_cli_sweep_launches`; the
 tree paths' in `tree_launches` and `tree_sweep_launches`; the stacked
 tails' in `tree_stacked_launches` and `tree_sweep_stacked_launches`, the
 tail stages' times in `tail_stages`; the paths of phases 12-15 in
-`tf1_launches`), and last the device record. Any failed
-phase raises and the script exits non-zero; it also exits non-zero, with no
-result, where CUDA is absent or the port's package is not beside it."""
+`tf1_launches`; each rank's on the mesh paths in `mesh_launches`,
+`sweep_mesh_launches_per_rank` and `sweep_remat_launches`), and last the
+device record. Any failed phase, rank or collective raises and the script
+exits non-zero; it also exits non-zero, with no result, where CUDA is
+absent or the port's package is not beside it."""
 
+import contextlib
 import json
 import os
 import statistics
@@ -304,7 +336,7 @@ CLI_T_LOG = 20
 # (experiment, net index, n_iter, resume) of the train_cli phase.
 CLI_RUNS = [("synth-ac", 4, 40, False), ("synth-ac", 4, 60, True),
             ("synth-sr", 7, 20, False), ("synth-cr", 4, 20, False),
-            ("synth-ac-tree", 4, 20, False)]
+            ("synth-ac-tree", 4, 10, False)]
 DESC_TOL = 1e-4  # kernel vs mcm_ref net_desc, per scalar stat
 N_SERVE = 20  # batches per timed serving window
 N_WINDOWS = 5  # timed serving windows per capacity
@@ -316,7 +348,7 @@ N_SWEEP_WINDOWS = 3
 # (experiment, n_iter, resume) of the train_cli phase's --vmap-sweep runs,
 # and the synth-ac member whose final descriptor is held against mcm_ref.
 SWEEP_CLI_RUNS = [("synth-ac", 40, False), ("synth-ac", 60, True),
-                  ("synth-ac-tree", 20, False)]
+                  ("synth-ac-tree", 10, False)]
 SWEEP_DESC_NET = 4
 MARGIN_TIE = 1e-3  # router top-2 logit margin below which exits may differ
 MARGIN_BF16 = 1e-2  # the margin reported for bf16 kernel vs plain exits
@@ -613,14 +645,15 @@ def tail_summary(rows, n_nets, dt):
                 **stage_totals(sel, "library_"))
 
 
-def net_axis_rows(label, stages, n_nets, dtypes, first=0):
+def net_axis_rows(label, stages, n_nets, dtypes, first=0, timed=True):
     """Per dtype and stage of `stages` (kernel_bench.sweep_stage_inputs,
     the first one stage `first`): the stage for n_nets nets through
     torch.func.vmap of fused_mcm, one net-axis launch per output scale,
     held against mcm_ref on each net's slice at the kernel phase's
     tolerances (in fp32 also against float64, and bit for bit against a
     single-net launch per net), timed (kernel_bench.stage_times of
-    sweep_stage_fns) beside the bound of the n_nets nets' work."""
+    sweep_stage_fns; not with timed=False) beside the bound of the n_nets
+    nets' work."""
     from mpnn_tpu_torch.kernel_bench import (bound, stage_cost, stage_times,
                                              sweep_stage_fns)
     from mpnn_tpu_torch.ops import config
@@ -690,10 +723,13 @@ def net_axis_rows(label, stages, n_nets, dtypes, first=0):
                 if dt == "fp32":
                     row["rel_err_vs_f64"] = err64 / scale64
                     row["plain_rel_err_vs_f64"] = plain64 / scale64
-                row.update(stage_times(xin, whs, wvs, bs, sweep_stage_fns))
                 row["bound_ms"], row["bound_by"] = bound(n_bytes, flops, dt)
-                row["vs_library"] = row["device_ms"] / row["library_device_ms"]
-                row["vs_bound"] = row["device_ms"] / row["bound_ms"]
+                if timed:
+                    row.update(stage_times(xin, whs, wvs, bs,
+                                           sweep_stage_fns))
+                    row["vs_library"] = (row["device_ms"]
+                                         / row["library_device_ms"])
+                    row["vs_bound"] = row["device_ms"] / row["bound_ms"]
                 rows.append(row)
         finally:
             config.set_compute_dtype(None)
@@ -909,7 +945,7 @@ TREE_DIR = os.path.join(HERE, "results", "nets", "hybrid-ac-tree-dynkcpt")
 # evaluates it, to measure what the rounding of the weights changes.
 TREE_CHECKPOINT = os.path.join(TREE_DIR, "net.npy.cz")
 TREE_FP32 = os.path.join(TREE_DIR, "net.npy")
-N_TREE_PASSES = 2  # passes over the test split per timed serving window
+N_TREE_PASSES = 1  # passes over the test split per timed serving window
 N_TREE_WINDOWS = 3  # timed serving windows per capacity and k_cpt
 EVAL_BATCH = 1024  # the batch of the trained tree's full-split evaluation
 
@@ -1164,21 +1200,23 @@ def _float64_stage(xs, whs, wvs, bs, supp):
     return [o.float() for o in outs]
 
 
-def train_once(net, params, state, vel, data, stage=None):
+def train_once(net, params, state, vel, data, stage=None, mesh=None):
     """One training step of the flagship from the generator seed 0, through
     the kernel, or through `stage` patched in for fused_mcm: the loss,
     gradients and launches of `loss_and_grads`, then the whole step's
-    params, state and launches."""
+    params, state and launches. With a mesh, this rank's step of its data
+    axis: the loss and gradients after the step's all-reduce, the global
+    batch's."""
     from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
-    from mpnn_tpu_torch.models.steps import (Schedules, _step_pieces,
-                                             make_train_step)
+    from mpnn_tpu_torch.models.steps import (Schedules, _all_reduce_step,
+                                             _step_pieces, make_train_step)
     from mpnn_tpu_torch.ops import kernels
     from mpnn_tpu_torch.utils.tree import tree_map
     counter = kernels.fused_mcm
     sched = Schedules(lr=λ_lrn, tau=τ_ds)
     batch_ctx, loss_and_grads = _step_pieces(net, TRAIN_BATCH, sched, 4,
-                                             False)
-    step = make_train_step(net, TRAIN_BATCH, sched)
+                                             False, mesh)
+    step = make_train_step(net, TRAIN_BATCH, sched, mesh=mesh)
     params, vel = (tree_map(torch.clone, t) for t in (params, vel))
     # Under stacked_tails, packed as the training loop carries them.
     (params, state, vel), unpack = _packing(net, (params, state, vel))
@@ -1186,7 +1224,8 @@ def train_once(net, params, state, vel, data, stage=None):
         n0, m0 = counter.launches, counter.net_launches
         gen = torch.Generator(device=data[0].device).manual_seed(0)
         xb, yb, ctx = batch_ctx(0, gen, *data, None)
-        loss, _, _, grads = loss_and_grads(params, state, xb, yb, ctx)
+        loss, _, p_tr, grads = loss_and_grads(params, state, xb, yb, ctx)
+        loss, _, grads = _all_reduce_step(ctx.data, loss, p_tr, grads)
         n1, m1 = counter.launches, counter.net_launches
         gen = torch.Generator(device=data[0].device).manual_seed(0)
         params, state, vel, _ = step(params, state, vel, 0, gen, *data)
@@ -1405,7 +1444,7 @@ def sweep_once(net, trees, k_cpts, data, stage=None):
     seed 0 and augmented from seed 1, through the kernel's net axis or
     through `stage` patched in for fused_mcm: the members' losses,
     gradients and launches of the vmapped loss and gradient, then the
-    whole step's params, state and launches."""
+    whole step's params, state, velocity and launches."""
     from mpnn_tpu_torch.data.augment import augment_presampled, sampled_batch
     from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
     from mpnn_tpu_torch.models.steps import (Schedules, _sweep_members,
@@ -1437,7 +1476,7 @@ def sweep_once(net, trees, k_cpts, data, stage=None):
         n2, m2 = counter.launches, counter.net_launches
     return {"loss": loss.tolist(), "grads": unpack(grads),
             "params": unpack(params), "state": unpack(state),
-            "launches": (n1 - n0, n2 - n1),
+            "vel": unpack(vel), "launches": (n1 - n0, n2 - n1),
             "net_launches": (m1 - m0, m2 - m1)}
 
 
@@ -1946,11 +1985,11 @@ def train_cli_phase(device):
 
 # (experiment, n_iter, t_log, stats_log, resume) of the adaptive_cli phase,
 # each one `python -m mpnn_tpu_torch.train_adaptive` process.
-ADAPTIVE_RUNS = [("synth-ac-tree-dynkcpt", 20, 10, True, False),
-                 ("synth-ac-tree-dynkcpt", 30, 10, True, True),
-                 ("synth-cr-dynkcpt", 20, None, False, False)]
+ADAPTIVE_RUNS = [("synth-ac-tree-dynkcpt", 10, 5, True, False),
+                 ("synth-ac-tree-dynkcpt", 15, 5, True, True),
+                 ("synth-cr-dynkcpt", 10, None, False, False)]
 # The first run again with --stacked-tails, into an output root of its own.
-ADAPTIVE_STACKED_RUN = ("synth-ac-tree-dynkcpt", 20, 10, True, False)
+ADAPTIVE_STACKED_RUN = ("synth-ac-tree-dynkcpt", 10, 5, True, False)
 DEFAULT_T_LOG = 2500
 
 
@@ -3033,6 +3072,690 @@ def compact_phase(device, tree):
             "served_examples": BATCH}
 
 
+# Parallelism (phases 16-20): the ranks of a mesh, each a process of its
+# own on the one card, sharing it over gloo (NCCL refuses two ranks on one
+# GPU), and world size 1 over NCCL.
+DP_RANKS = 2
+DP_WINDOWS = (2, 10)  # timed windows x steps of dp_train
+MESH_CLI_STEPS = 1  # steps of the mesh CLI runs (one-step gates; see PERF.md)
+MESH_TIMEOUT_S = 300  # a CLI run over ranks, start to end
+ROUTE_REPS = 5  # timed calls of each of sweep_remat's gradient routes
+# The velocity gates of sweep_mesh's checkpoints: TRAIN_TOL's, but 5e-3
+# over the tree. After one step the velocity is the gradient after TALR,
+# which scales the deepest nodes' gradients (p_tr near the eps floor) until
+# they dominate the tree, and those are ill-conditioned in fp32. A 2x1 sweep
+# mesh reduces nothing across ranks, but each rank's vmap is 4 nets wide
+# against the meshless 8, and the backward's grouped convolutions (one
+# group a net) are other calls at each width: on an H100 the meshless
+# step at 4 against 8 wide reads 2.0e-5 to 6.5e-4 over a member's
+# velocity tree (`sweep_width_gap`; run to run 2.1e-7 to 3.5e-7), and the
+# CLI's mesh against meshless 3.6e-5 to 2.15e-3 (PERF.md, PR 15); the
+# bound is 2.3x the largest.
+SWEEP_MESH_VEL_TOL = dict(TRAIN_TOL, tree=5e-3)
+JOIN_TIMEOUT_S = 120  # a rank joining, or waiting in a collective
+
+
+@contextlib.contextmanager
+def _counting_all_reduce():
+    """torch.distributed.all_reduce (which mesh and steps call through the
+    module) wrapped to count its calls and their host seconds, in the
+    dict yielded, until the block ends."""
+    import torch.distributed as dist
+    counts = {"calls": 0, "host_s": 0.0}
+    inner = dist.all_reduce
+
+    def all_reduce(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            counts["host_s"] += time.perf_counter() - t
+            counts["calls"] += 1
+
+    dist.all_reduce = all_reduce
+    try:
+        yield counts
+    finally:
+        dist.all_reduce = inner
+
+
+def _dp_rank(rank, n_ranks, port, out_dir):
+    """One rank of dp_train: the flagship at batch TRAIN_BATCH over a data
+    mesh of every rank, one step (`train_once`) and the timed windows
+    (`make_train_loop`, its launches counted from 0), written to
+    out_dir/rank<r>.pt for the parent."""
+    sys.path.insert(0, HERE)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import Schedules, make_train_loop
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    from mpnn_tpu_torch.parallel import make_mesh, multihost
+    from mpnn_tpu_torch.utils.tree import tree_map
+    multihost.initialize("127.0.0.1:%d" % port, n_ranks, rank,
+                         timeout_s=JOIN_TIMEOUT_S)
+    try:
+        import torch.distributed as dist
+        device = multihost.local_device()
+        config.set_compute_dtype(None)
+        net, params, state, vel = train_bench.build(0, device)
+        data = train_bench.train_data(net, device)
+        mesh = make_mesh()
+        one = train_once(net, params, state, vel, data, mesh=mesh)
+        one["rows"] = list(mesh.data.rows(TRAIN_BATCH))
+        loop = make_train_loop(net, TRAIN_BATCH,
+                               Schedules(lr=λ_lrn, tau=τ_ds), mesh=mesh)
+        trees = (params, state, vel)
+        trees = loop(*trees, 0, 1, *data, 2)[:3]  # warm-up
+        n_windows, n_steps = DP_WINDOWS
+        t, windows = 2, []
+        with _counting_all_reduce() as counts:
+            fused_mcm.launches = 0  # the main path, counted from 0
+            for _ in range(n_windows):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trees = loop(*trees, t, 1, *data, n_steps)[:3]
+                torch.cuda.synchronize()
+                windows.append(time.perf_counter() - t0)
+                t += n_steps
+        steps = n_windows * n_steps
+        rec = {"rank": rank, "backend": dist.get_backend(),
+               "device": str(device), "mesh": mesh.shape,
+               "one": tree_map(lambda a: a.cpu() if torch.is_tensor(a)
+                               else a, one),
+               "launches": fused_mcm.launches, "steps": steps,
+               "all_reduces": counts["calls"],
+               "all_reduce_host_s": counts["host_s"],
+               "window_s": windows}
+    finally:
+        multihost.shutdown()
+    torch.save(rec, os.path.join(out_dir, "rank%d.pt" % rank))
+
+
+def _start_ranks(fn, n_ranks, *args):
+    """Run fn(rank, n_ranks, port, out_dir, *args) in n_ranks processes
+    (spawn) and return what each wrote to out_dir/rank<r>.pt; a rank that
+    fails fails the phase (and stops the others)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from mpnn_tpu_torch.parallel.multihost import free_port
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(fn, args=(n_ranks, free_port(), d) + args,
+                           nprocs=n_ranks, join=True, start_method="spawn")
+        return [torch.load(os.path.join(d, "rank%d.pt" % r),
+                           map_location="cpu", weights_only=False)
+                for r in range(n_ranks)]
+
+
+def _to_cpu(rec):
+    from mpnn_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda a: a.cpu() if torch.is_tensor(a) else a, rec)
+
+
+def rank_stage_check(device, batch, label):
+    """The flagship's eight stages at a rank's batch through the kernel
+    against mcm_ref (fp32, TOL) and float64 (F64_TOL): the worst errors."""
+    from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.kernel_bench import stage_inputs
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm, mcm_ref
+    config.set_compute_dtype(None)
+    err = rel = rel64 = 0.0
+    for i, (xs, whs, wvs, bs, _) in enumerate(stage_inputs(
+            arch, batch, 32, seed=5, device=device)):
+        out = fused_mcm(xs, whs, wvs, bs, 3)
+        ref = mcm_ref(xs, whs, wvs, bs)
+        torch.cuda.synchronize()
+        e = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        scale = max(float(r.abs().max()) for r in ref)
+        check(e <= TOL["fp32"] * scale, "%s stage %d batch %d: max abs err "
+              "%g > %g * max|ref| %g" % (label, i, batch, e, TOL["fp32"],
+                                         scale))
+        err, rel = max(err, e), max(rel, e / scale)
+        rel64 = max(rel64, check_f64("%s stage %d batch %d" % (
+            label, i, batch), out, xs, whs, wvs, bs)["rel_err_vs_f64"])
+    return {"batch": batch, "max_abs_err": err, "max_rel_err": rel,
+            "max_rel_err_vs_f64": rel64}
+
+
+def dp_train_phase(device, single_fp32):
+    """dp_train: the flagship actor chain at k_cpts[4], global batch
+    TRAIN_BATCH in fp32, over a data mesh of DP_RANKS ranks sharing the
+    card over gloo: one step against the single-process kernel step at
+    the same batch (`train_once`) at train_fp32_vs_plain's gates, every
+    rank's params equal after it, PER_FORWARD launches per forward on each
+    rank; then DP_WINDOWS timed windows: img/s over the global batch, the
+    all-reduces a step and their host seconds, and each rank's launches
+    counted from 0 against PER_FORWARD x steps. The kernel at a rank's
+    batch against mcm_ref (`rank_stage_check`)."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.ops import config
+    config.set_compute_dtype(None)
+    net, params, state, vel = train_bench.build(0, device)
+    data = train_bench.train_data(net, device)
+    ref = _to_cpu(train_once(net, params, state, vel, data))
+    per_fwd = mcm_launches_per_forward(net)
+    t0 = time.perf_counter()
+    ranks = _start_ranks(_dp_rank, DP_RANKS)
+    wall = time.perf_counter() - t0
+    zero = zero_grad_paths(net)
+    loss_err, errs = step_gates("dp_train", ranks[0]["one"], ref, zero)
+    rows = [r["one"]["rows"] for r in ranks]
+    check(rows == [[i * TRAIN_BATCH // DP_RANKS,
+                    (i + 1) * TRAIN_BATCH // DP_RANKS]
+                   for i in range(DP_RANKS)], "dp_train: rows %s" % rows)
+    same = [torch.equal(a, b) for r in ranks[1:] for a, b in zip(
+        _leaves_only(r["one"]["params"]), _leaves_only(
+            ranks[0]["one"]["params"]))]
+    check(all(same), "dp_train: the ranks' params differ after the step")
+    for r in ranks:
+        check(tuple(r["one"]["launches"]) == (per_fwd, per_fwd)
+              and r["launches"] == per_fwd * r["steps"],
+              "dp_train rank %d: launches %s, %d in %d steps; expected %d "
+              "a forward" % (r["rank"], r["one"]["launches"],
+                             r["launches"], r["steps"], per_fwd))
+    n_steps = DP_WINDOWS[1]
+    values = [TRAIN_BATCH * n_steps / w for w in ranks[0]["window_s"]]
+    value = statistics.median(values)
+    return {"ranks": DP_RANKS, "backend": ranks[0]["backend"],
+            "batch": TRAIN_BATCH, "rows_per_rank": TRAIN_BATCH // DP_RANKS,
+            "precision": "fp32", "loss": ranks[0]["one"]["loss"],
+            "loss_single": ref["loss"], "loss_rel_err": loss_err,
+            "errors": errs, "tolerances": TRAIN_TOL,
+            "launches_per_forward": per_fwd,
+            "launches": [r["launches"] for r in ranks],
+            "steps": ranks[0]["steps"], "value": value,
+            "unit": "img/s over the global batch, median of windows",
+            "window_values": values,
+            "single_value": single_fp32["value"],
+            "vs_single": value / single_fp32["value"],
+            "all_reduces_per_step": [r["all_reduces"] / r["steps"]
+                                     for r in ranks],
+            "all_reduce_host_ms_per_step": [
+                1e3 * r["all_reduce_host_s"] / r["steps"] for r in ranks],
+            "step_ms": [1e3 * sum(r["window_s"]) / r["steps"]
+                        for r in ranks],
+            "ranks_wall_s": wall,
+            "kernel_at_rank_batch": rank_stage_check(
+                device, TRAIN_BATCH // DP_RANKS, "dp_train")}
+
+
+def _leaves_only(tree):
+    from mpnn_tpu_torch.utils.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def dp_nccl_phase(device):
+    """dp_nccl: this process alone as a world of one rank over NCCL. The
+    mesh `make_mesh` makes there has a 'data' axis of one rank, which
+    reduces nothing; one step on an axis over the NCCL world (`world_axis`)
+    runs the data-parallel step's all-reduces through NCCL: that step
+    against the meshless kernel step at the step gates, and whether the
+    two are equal bit for bit (the mesh's moments are sums over the
+    count, the meshless means)."""
+    import torch.distributed as dist
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.parallel import make_mesh, multihost
+    from mpnn_tpu_torch.parallel.mesh import Axis, Mesh, world_axis
+    config.set_compute_dtype(None)
+    net, params, state, vel = train_bench.build(0, device)
+    data = train_bench.train_data(net, device)
+    ref = train_once(net, params, state, vel, data)
+    multihost.initialize("127.0.0.1:%d" % multihost.free_port(), 1, 0,
+                         timeout_s=JOIN_TIMEOUT_S)
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", "dp_nccl: backend %s" % backend)
+        check(not make_mesh().data.reduces, "dp_nccl: a one-rank 'data' "
+              "axis reduces")
+        mesh = Mesh(("data", "model"), [world_axis(), Axis(1, 0)])
+        with _counting_all_reduce() as counts:
+            got = train_once(net, params, state, vel, data, mesh=mesh)
+    finally:
+        multihost.shutdown()
+    per_fwd = mcm_launches_per_forward(net)
+    check(tuple(got["launches"]) == (per_fwd, per_fwd), "dp_nccl: launches %s"
+          % (got["launches"],))
+    check(counts["calls"] > 0, "dp_nccl: no all-reduce ran")
+    zero = zero_grad_paths(net)
+    loss_err, errs = step_gates("dp_nccl", got, ref, zero)
+    bit = {name: all(torch.equal(a, b) for a, b in zip(
+        _leaves_only(got[key]), _leaves_only(ref[key])))
+        for name, key in (("params", "params"), ("state", "state"),
+                          ("grads", "grads"))}
+    bit["loss"] = got["loss"] == ref["loss"]
+    return {"backend": backend, "world": 1, "batch": TRAIN_BATCH,
+            "all_reduces": counts["calls"], "loss": got["loss"],
+            "loss_meshless": ref["loss"], "loss_rel_err": loss_err,
+            "errors": errs, "bit_for_bit": bit,
+            "launches_per_forward": per_fwd}
+
+
+def _desc_leaves(desc, path=""):
+    """{path: float64 array} of every numeric leaf of a descriptor."""
+    if isinstance(desc, dict):
+        return {k: v for key in sorted(desc) for k, v in
+                _desc_leaves(desc[key], "%s/%s" % (path, key)).items()}
+    if isinstance(desc, list):
+        return {k: v for i, d in enumerate(desc)
+                for k, v in _desc_leaves(d, "%s[%d]" % (path, i)).items()}
+    if isinstance(desc, str):
+        return {}
+    return {path: np.asarray(desc, np.float64)}
+
+
+def _files_of(root):
+    return sorted(os.path.relpath(os.path.join(r, f), root)
+                  for r, _, fs in os.walk(root) for f in fs)
+
+
+def compare_net_files(label, got_root, want_root, i, zero, n_evals,
+                      vel_tol=TRAIN_TOL):
+    """Net i's files in got_root against want_root's: the same names; its
+    checkpoint's params at the step gates (tree, leaf and zero-gradient
+    leaves of TRAIN_TOL), its velocity at vel_tol's (after one step from
+    zero, the gradient after TALR), its BatchNorm statistics per leaf,
+    its latest descriptors within DESC_TOL x max(1, |stat|), and its log
+    written once per evaluation. Returns the errors."""
+    from mpnn_tpu_torch.utils.serdes import read_net
+    _, gp, gs, gx = read_net(os.path.join(got_root, "%.4i.npy" % i), "cpu")
+    _, wp, ws, wx = read_net(os.path.join(want_root, "%.4i.npy" % i), "cpu")
+    check(gx["t"] == wx["t"], "%s net %d: step %s, expected %s"
+          % (label, i, gx["t"], wx["t"]))
+    errs = {"parameter": tree_errs(gp, wp, zero),
+            "velocity": tree_errs(gx["vel"], wx["vel"], zero),
+            "BatchNorm statistic": tree_errs(gs, ws)}
+    check(errs["BatchNorm statistic"]["leaf"] <= TRAIN_TOL["state"],
+          "%s net %d: BatchNorm statistic error %g" % (
+              label, i, errs["BatchNorm statistic"]["leaf"]))
+    for name, tol in (("parameter", TRAIN_TOL), ("velocity", vel_tol)):
+        for key in ("tree", "leaf", "zero_grad"):
+            check(errs[name][key] <= tol[key], "%s net %d: %s %s error "
+                  "%g > %g (worst leaf %s)" % (
+                      label, i, name, key, errs[name][key], tol[key],
+                      errs[name]["worst_leaf"]))
+    load = lambda root: np.load(  # noqa: E731
+        os.path.join(root, "%.4i-stats.npy" % i), allow_pickle=True)[()]
+    got, want = _desc_leaves(load(got_root)), _desc_leaves(load(want_root))
+    check(sorted(got) == sorted(want), "%s net %d: descriptor keys differ"
+          % (label, i))
+    desc_err = max(float(np.max(np.abs(got[k] - v) / np.maximum(
+        1.0, np.abs(v)))) for k, v in want.items())
+    check(desc_err <= DESC_TOL, "%s net %d: descriptors differ by %g"
+          % (label, i, desc_err))
+    with open(os.path.join(got_root, "%.4i-log.txt" % i)) as f:
+        n_logged = f.read().count("Epoch")
+    check(n_logged == n_evals, "%s net %d: %d evaluations logged, "
+          "expected %d (each written once)" % (label, i, n_logged, n_evals))
+    return {"parameter_tree": errs["parameter"]["tree"],
+            "parameter_leaf": errs["parameter"]["leaf"],
+            "velocity_tree": errs["velocity"]["tree"],
+            "velocity_leaf": errs["velocity"]["leaf"],
+            "velocity_zero_grad": errs["velocity"]["zero_grad"],
+            "state_leaf": errs["BatchNorm statistic"]["leaf"],
+            "desc": desc_err}
+
+
+def _start_cli(argv, out_path, launcher=()):
+    """A CLI run over ranks in processes of its own (the CLI's own ranks,
+    or a launcher's), its output to out_path: the process."""
+    import subprocess
+    with open(out_path, "w") as out:
+        return subprocess.Popen([sys.executable, *launcher, "-m",
+                                 "mpnn_tpu_torch.train", *argv], cwd=HERE,
+                                stdout=out, stderr=subprocess.STDOUT,
+                                text=True)
+
+
+def _finish_cli(proc, out_path, label):
+    """Wait for a `_start_cli` run: its output and each rank's closing
+    JSON line, in rank order; a failed or overdue run fails the phase."""
+    import subprocess
+    try:
+        rc = proc.wait(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    with open(out_path) as f:
+        text = f.read()
+    check(rc == 0, "%s: exit %d\n%s" % (label, rc, text[-3000:]))
+    ranks = sorted((json.loads(line) for line in text.splitlines()
+                    if line.startswith('{"rank"')), key=lambda x: x["rank"])
+    return text, ranks
+
+
+def _mesh_data(d):
+    """The small synthetic synth.npz of the registry's synth-* runs."""
+    from mpnn_tpu_torch.data.prep import save_archive, synthetic_archive
+    save_archive(os.path.join(d, "data", "synth.npz"),
+                 synthetic_archive("synth.npz", small=True))
+
+
+def _eval_batches(d):
+    from mpnn_tpu_torch.data.dataset import Dataset
+    ds = Dataset(os.path.join(d, "data", "synth.npz"), device_put=False)
+    return sum(-(-len(x) // TRAIN_BATCH) for x in (ds.x0_tr, ds.x0_ts))
+
+
+def mesh_cli_phases(device):
+    """sweep_mesh and mesh_cli, the CLI over ranks in processes of its own,
+    both started at once, MESH_CLI_STEPS steps at batch TRAIN_BATCH, fp32,
+    on the small synthetic archive, each against the same run in this
+    process (made while they run):
+
+    - sweep_mesh: `train synth-ac --vmap-sweep --mesh 2x1` (the CLI starts
+      2 ranks on the card, 4 nets each, no collective between nets)
+      against the meshless sweep; every member's files
+      (`compare_net_files`, the velocity at SWEEP_MESH_VEL_TOL), the
+      meshless sweep's own velocity gaps (`sweep_width_gap`), each rank's
+      net-axis launches counted from 0
+      in its process against PER_FORWARD x (steps + evaluation batches);
+      the net axis at 4 nets against mcm_ref (`net_axis_rows`, untimed).
+    - mesh_cli: `python -m torch.distributed.run --nproc-per-node 2 -m
+      mpnn_tpu_torch.train synth-ac --net 4 --multihost --mesh auto` (two
+      ranks on the card over gloo, data-parallel at a global batch of
+      TRAIN_BATCH) against `train synth-ac --net 4`: the files (rank 0
+      alone writes) and each rank's launches against PER_FORWARD x
+      (steps + evaluation batches: each rank evaluates its rows of every
+      batch).
+
+    Returns the two phases' records."""
+    import contextlib
+    import io
+    import tempfile
+    from mpnn_tpu_torch import train as cli
+    from mpnn_tpu_torch.experiments import arch, make_experiments
+    from mpnn_tpu_torch.kernel_bench import sweep_stage_inputs
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    from mpnn_tpu_torch.parallel.multihost import free_port
+    config.set_compute_dtype(None)
+    n_per_rank = N_NETS // DP_RANKS
+    steps = MESH_CLI_STEPS
+    common = ["--n-iter", str(steps), "--t-log", str(CLI_T_LOG),
+              "--batch-size", str(TRAIN_BATCH)]
+    registry = make_experiments()
+    with tempfile.TemporaryDirectory() as d:
+        _mesh_data(d)
+        n_batches = _eval_batches(d)
+        out = {k: os.path.join(d, k + ".out") for k in ("sweep", "cli")}
+        t0 = time.perf_counter()
+        procs = {
+            "sweep": _start_cli(
+                ["synth-ac", "--vmap-sweep", "--mesh", "%dx1" % DP_RANKS,
+                 "--data-root", d, "--out-root", os.path.join(d, "mesh"),
+                 *common], out["sweep"]),
+            "cli": _start_cli(
+                ["synth-ac", "--net", "4", "--multihost", "--mesh", "auto",
+                 "--data-root", d, "--out-root",
+                 os.path.join(d, "torchrun"), *common], out["cli"],
+                launcher=("-m", "torch.distributed.run", "--nproc-per-node",
+                          str(DP_RANKS), "--master-addr", "127.0.0.1",
+                          "--master-port", str(free_port())))}
+        try:
+            n0, m0 = fused_mcm.launches, fused_mcm.net_launches
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.train_experiment(
+                    "synth-ac", n_iter=steps, t_log=CLI_T_LOG,
+                    batch_size=TRAIN_BATCH, data_root=d,
+                    out_root=os.path.join(d, "meshless"), device=device,
+                    vmap_sweep=True)
+                meshless_launches = fused_mcm.net_launches - m0
+                n1 = fused_mcm.launches
+                cli.train_experiment(
+                    "synth-ac", n_iter=steps, t_log=CLI_T_LOG,
+                    batch_size=TRAIN_BATCH, net_indices=[4], data_root=d,
+                    out_root=os.path.join(d, "single"), device=device)
+                single_launches = fused_mcm.launches - n1
+            check(n1 - n0 == meshless_launches, "sweep_mesh: the meshless "
+                  "sweep launched off the net axis")
+            width = sweep_width_gap(device)
+            _, sweep_ranks = _finish_cli(procs["sweep"], out["sweep"],
+                                         "sweep_mesh")
+            text, cli_ranks = _finish_cli(procs["cli"], out["cli"],
+                                          "mesh_cli")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+        wall = time.perf_counter() - t0
+        # One evaluation, at the end (steps < CLI_T_LOG).
+        net = registry["synth-ac"].nets[4]((32, 32, 3), (10,))
+        per_fwd = mcm_launches_per_forward(net)
+        expect = per_fwd * (steps + n_batches)
+        zero = zero_grad_paths(net)
+
+        check([r["rank"] for r in sweep_ranks] == list(range(DP_RANKS))
+              and all(r["mesh"] == {"sweep": DP_RANKS, "data": 1}
+                      and r["fused_mcm_net_launches"] == expect
+                      == r["fused_mcm_launches"] for r in sweep_ranks)
+              and meshless_launches == expect,
+              "sweep_mesh: ranks %s, meshless %d net-axis launches; "
+              "expected %d each" % (sweep_ranks, meshless_launches, expect))
+        got = os.path.join(d, "mesh", "synth-ac")
+        want = os.path.join(d, "meshless", "synth-ac")
+        check(_files_of(got) == _files_of(want), "sweep_mesh: files %s vs "
+              "%s" % (_files_of(got), _files_of(want)))
+        members = [compare_net_files("sweep_mesh", got, want, i, zero, 1,
+                                     SWEEP_MESH_VEL_TOL)
+                   for i in range(N_NETS)]
+
+        check([r["rank"] for r in cli_ranks] == list(range(DP_RANKS))
+              and all(r["mesh"] == {"data": DP_RANKS, "model": 1}
+                      and r["fused_mcm_launches"] == expect
+                      for r in cli_ranks) and single_launches == expect,
+              "mesh_cli: ranks %s, single %d launches; expected %d each"
+              % (cli_ranks, single_launches, expect))
+        check(all("[multihost: rank %d of %d]" % (r, DP_RANKS) in text
+                  for r in range(DP_RANKS)), "mesh_cli: ranks not joined")
+        got = os.path.join(d, "torchrun", "synth-ac")
+        want = os.path.join(d, "single", "synth-ac")
+        check(_files_of(got) == _files_of(want), "mesh_cli: files %s vs %s"
+              % (_files_of(got), _files_of(want)))
+        cli_errs = compare_net_files("mesh_cli", got, want, 4, zero, 1)
+    rows = net_axis_rows("sweep_mesh", sweep_stage_inputs(
+        arch, n_per_rank, TRAIN_BATCH, 32, seed=6, device=device),
+        n_per_rank, ("fp32",), timed=False)
+    common = {"steps": steps, "batch": TRAIN_BATCH,
+              "eval_batches": n_batches, "both_runs_wall_s": wall}
+    return ({"mesh": "%dx1" % DP_RANKS, "nets": N_NETS,
+             "nets_per_rank": n_per_rank,
+             "rank_launches": [{k: r[k] for k in (
+                 "rank", "device", "fused_mcm_launches",
+                 "fused_mcm_net_launches")} for r in sweep_ranks],
+             "meshless_net_launches": meshless_launches,
+             "members": members, "velocity_tolerances": SWEEP_MESH_VEL_TOL,
+             "meshless_width_gap": width,
+             "kernel_net_axis": {
+                 "nets": n_per_rank,
+                 "max_abs_err": max(r["max_abs_err"] for r in rows),
+                 "max_rel_err_vs_f64": max(r["rel_err_vs_f64"]
+                                           for r in rows),
+                 "bit_equal_to_single_net": all(
+                     r["bit_equal_to_single_net"] for r in rows)},
+             **common},
+            {"launcher": "torch.distributed.run", "ranks": DP_RANKS,
+             "rank_launches": [{k: r[k] for k in (
+                 "rank", "device", "fused_mcm_launches")}
+                 for r in cli_ranks],
+             "single_launches": single_launches, "errors": cli_errs,
+             **common})
+
+
+def _grad_and_value_sweep(net, batch):
+    """loss_and_grads(params_s, state_s, k_cpts, xb, yb, tau) of the sweep
+    by `torch.func.vmap` of `torch.func.grad_and_value` of the member
+    loss, the route the port's sweep does not take (it takes
+    `torch.autograd.grad` through the vmapped loss): sweep_remat's
+    comparison."""
+    from mpnn_tpu_torch.models.net import Ctx, _hyper
+    from mpnn_tpu_torch.models.steps import _loss_fn
+    eps = float(_hyper(net, "ϵ", 1e-6))
+    grad_and_loss = torch.func.grad_and_value(_loss_fn(net, batch),
+                                              has_aux=True)
+
+    def member(params, state, k_cpt, xb, yb, tau):
+        return grad_and_loss(params, state, xb, yb, Ctx(
+            train=True, tau=tau, eps=eps, k_cpt=k_cpt))
+
+    return torch.func.vmap(member, in_dims=(0, 0, 0, None, None, None))
+
+
+def sweep_routes(net, trees, k_cpts, data, zero):
+    """The 8-net sweep's loss and gradients, without a remat policy, by
+    the port's route (`_sweep_members`) and by `_grad_and_value_sweep`:
+    the two held at the step gates, the median of ROUTE_REPS calls of
+    each (CUDA events, the two interleaved) and each call's peak device
+    memory."""
+    from mpnn_tpu_torch.data.augment import augment_presampled, sampled_batch
+    from mpnn_tpu_torch.experiments import τ_ds
+    from mpnn_tpu_torch.models.steps import _sweep_members
+    params, state, _ = trees
+    x0, y, m_sym = data
+    dev = x0.device
+    xb, yb = sampled_batch(torch.Generator(dev).manual_seed(0), x0, y,
+                           TRAIN_BATCH)
+    xa, ya = augment_presampled(torch.Generator(dev).manual_seed(1), xb, yb,
+                                m_sym)
+    args = (params, state, k_cpts, xa, ya, τ_ds(0))
+    routes = {"autograd": _sweep_members(net, TRAIN_BATCH)[0],
+              "grad_and_value": _grad_and_value_sweep(net, TRAIN_BATCH)}
+    out, grads = {}, {}
+    for name, fn in routes.items():
+        fn(*args)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        g, (loss, _) = fn(*args)
+        torch.cuda.synchronize()
+        out[name] = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+                     "ms": []}
+        grads[name] = (g, loss)
+    for _ in range(ROUTE_REPS):
+        for name, fn in routes.items():
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn(*args)
+            b.record()
+            b.synchronize()
+            out[name]["ms"].append(a.elapsed_time(b))
+    for rec in out.values():
+        rec["median_ms"] = statistics.median(rec["ms"])
+    (g, loss), (g_ref, loss_ref) = grads["autograd"], grads["grad_and_value"]
+    loss_err = float(torch.max(torch.abs(loss - loss_ref)
+                               / torch.abs(loss_ref)))
+    errs = tree_errs(g, g_ref, zero)
+    check(loss_err <= TRAIN_TOL["loss"] and all(
+        errs[k] <= TRAIN_TOL[k] for k in ("tree", "leaf", "zero_grad")),
+        "sweep_remat routes: loss %g, gradient errors %s" % (loss_err, errs))
+    return {"routes": out, "loss_rel_err": loss_err, "gradient": errs,
+            "autograd_vs_grad_and_value_ms": (
+                out["autograd"]["median_ms"]
+                / out["grad_and_value"]["median_ms"]),
+            "timing": "the loss and gradients alone, CUDA events around "
+                      "one call, median of %d" % ROUTE_REPS}
+
+
+def sweep_remat_phase(device):
+    """sweep_remat: one fp32 step of the 8-net flagship sweep under
+    remat_policy "full" and "dots" (the gradient through the vmapped
+    forward, checkpointed) against the step without a policy, at the step
+    gates, with the launches of the loss and gradient ("full" recomputes
+    every stage: twice PER_FORWARD; "dots" saves the stage's outputs) and
+    the peak device memory of the step; then, without a policy, the
+    port's gradient route beside `torch.func.grad_and_value`'s
+    (`sweep_routes`)."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.ops import config
+    config.set_compute_dtype(None)
+    net, params, state, vel, k_cpts = train_bench.build_sweep(N_NETS, 0,
+                                                              device)
+    data = train_bench.train_data(net, device)
+    per_fwd = mcm_launches_per_forward(net)
+    zero = zero_grad_paths(net)
+    out, ref = {}, None
+    try:
+        for policy in (None, "full", "dots"):
+            config.set_remat(policy)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            rec = sweep_once(net, (params, state, vel), k_cpts, data)
+            peak = torch.cuda.max_memory_allocated() - base
+            want = 2 * per_fwd if policy == "full" else per_fwd
+            check(rec["launches"] == (want, want)
+                  and rec["net_launches"] == rec["launches"],
+                  "sweep_remat %s: launches %s, expected %d on the net "
+                  "axis" % (policy, rec["launches"], want))
+            if ref is None:
+                ref = rec
+                out["none"] = {"peak_bytes": peak,
+                               "launches": rec["launches"][0]}
+                continue
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+                rec["loss"], ref["loss"]))
+            errs = {"gradient": tree_errs(rec["grads"], ref["grads"], zero),
+                    "parameter": tree_errs(rec["params"], ref["params"],
+                                           zero),
+                    "BatchNorm statistic": tree_errs(rec["state"],
+                                                     ref["state"])}
+            check(loss_err <= TRAIN_TOL["loss"]
+                  and errs["BatchNorm statistic"]["leaf"]
+                  <= TRAIN_TOL["state"]
+                  and all(errs[n][k] <= TRAIN_TOL[k]
+                          for n in ("gradient", "parameter")
+                          for k in ("tree", "leaf", "zero_grad")),
+                  "sweep_remat %s: loss %g, errors %s" % (policy, loss_err,
+                                                          errs))
+            out[policy] = {"loss_rel_err": loss_err, "errors": errs,
+                           "peak_bytes": peak,
+                           "launches": rec["launches"][0]}
+    finally:
+        config.set_remat(None)
+    return {"nets": N_NETS, "batch": TRAIN_BATCH, "precision": "fp32",
+            "launches_per_sweep_forward": per_fwd, "tolerances": TRAIN_TOL,
+            "policies": out, "no_policy_routes": sweep_routes(
+                net, (params, state, vel), k_cpts, data, zero)}
+
+
+def sweep_width_gap(device):
+    """The meshless 8-net flagship sweep step (fp32, from zero velocity)
+    against itself run again, and against the two 4-net steps of its
+    halves (members 0-3 and 4-7: a 2x1 sweep mesh's shares, each rank's
+    vmap 4 wide): per member, the velocity's errors (tree, leaf) and the
+    worst over members. Not gates: the readings behind
+    SWEEP_MESH_VEL_TOL."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.utils.tree import tree_map, unstack_tree
+    config.set_compute_dtype(None)
+    net, params, state, vel, k_cpts = train_bench.build_sweep(N_NETS, 0,
+                                                              device)
+    data = train_bench.train_data(net, device)
+    zero = zero_grad_paths(net)
+    trees = (params, state, vel)
+    full = sweep_once(net, trees, k_cpts, data)
+    again = sweep_once(net, trees, k_cpts, data)
+    k = N_NETS // DP_RANKS
+    halves = [sweep_once(net, tuple(tree_map(
+        lambda a: a[lo:lo + k].clone(), t) for t in trees),
+        k_cpts[lo:lo + k], data) for lo in range(0, N_NETS, k)]
+    out = {"repeat": [], "width_%d_vs_%d" % (k, N_NETS): []}
+    for i in range(N_NETS):
+        want = unstack_tree(full["vel"], i)
+        for key, got in (("repeat", unstack_tree(again["vel"], i)),
+                         ("width_%d_vs_%d" % (k, N_NETS),
+                          unstack_tree(halves[i // k]["vel"], i % k))):
+            e = tree_errs(got, want, zero)
+            out[key].append({"tree": e["tree"], "leaf": e["leaf"]})
+    return {key: {"worst_tree": max(r["tree"] for r in rows),
+                  "worst_leaf": max(r["leaf"] for r in rows),
+                  "members": rows} for key, rows in out.items()}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3183,6 +3906,21 @@ def main():
     phase("prep_files", zoo_phases_s=time.perf_counter() - t_zoo,
           **prep_files)
 
+    # 16-20. parallelism: data-parallel ranks sharing the card over gloo,
+    # world size 1 over NCCL, the sweep mesh and torchrun through the CLI,
+    # and remat under the sweep step; each rank's launches counted from 0
+    # in its own process.
+    t_par = time.perf_counter()
+    dp = dp_train_phase(device, train["fp32"])
+    phase("dp_train", **dp)
+    phase("dp_nccl", **dp_nccl_phase(device))
+    sweep_mesh, mesh_cli = mesh_cli_phases(device)
+    phase("sweep_mesh", **sweep_mesh)
+    phase("mesh_cli", **mesh_cli)
+    sweep_remat = sweep_remat_phase(device)
+    phase("sweep_remat", parallel_phases_s=time.perf_counter() - t_par,
+          **sweep_remat)
+
     bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
     bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
                                sum(r["flops"] for r in bf), "bf16")
@@ -3252,6 +3990,11 @@ def main():
             "zoo_train_per_forward": zoo_train["launches_per_forward"],
             "tf1_cli": {r["run"]: r["launches"] for r in tf1_cli["runs"]},
             "prep_files": prep_files["fused_mcm_launches"]},
+        "mesh_launches": {
+            "dp_train_per_rank": dp["launches"],
+            "dp_train_steps": dp["steps"],
+            "mesh_cli_per_rank": [r["fused_mcm_launches"]
+                                  for r in mesh_cli["rank_launches"]]},
         "dtype": "fp32",
         "work": "the eight flagship stages, batch %d, one call each" % BATCH,
         "max_abs_err": max(r["max_abs_err"] for r in f32),
@@ -3298,6 +4041,11 @@ def main():
             "steps": tree_sweep_stacked["steps"]},
         "tail_stages": [tail_summary(tail_rows, n, dt)
                         for n, dtypes in TAIL_NETS.items() for dt in dtypes],
+        "sweep_mesh_launches_per_rank": [
+            r["fused_mcm_net_launches"]
+            for r in sweep_mesh["rank_launches"]],
+        "sweep_remat_launches": {
+            p: r["launches"] for p, r in sweep_remat["policies"].items()},
         "dtype": "bf16",
         "work": "the eight flagship stages for %d nets x batch %d, stage "
                 "0's input shared, one call each" % (N_NETS, TRAIN_BATCH),

@@ -34,12 +34,22 @@ def shift_batch(x, du, dv):
     return torch.where(cover[..., None], out, fill)
 
 
-def rand_shift_batch(gen, x, r):
-    """Shift every image by an independent (du, dv) drawn from [-r, r]."""
+def _drawn(x, part):
+    """(n, lo): the draws of a batch of n are made, and x takes rows lo
+    onwards of them; part = (lo, hi, n) of a data-parallel rank, or None
+    (x is the whole batch)."""
+    return (x.shape[0], 0) if part is None else (part[2], part[0])
+
+
+def rand_shift_batch(gen, x, r, part=None):
+    """Shift every image by an independent (du, dv) drawn from [-r, r].
+    With part = (lo, hi, n), x is rows lo:hi of a batch of n, and the
+    draws are the whole batch's, sliced."""
     if r == 0:
         return x
-    duv = torch.randint(-r, r + 1, (x.shape[0], 2), generator=gen,
-                        device=x.device)
+    n, lo = _drawn(x, part)
+    duv = torch.randint(-r, r + 1, (n, 2), generator=gen,
+                        device=x.device)[lo:lo + x.shape[0]]
     return shift_batch(x, duv[:, 0], duv[:, 1])
 
 
@@ -48,19 +58,23 @@ def flip_batch(x, do_flip):
     return torch.where(do_flip[:, None, None, None], torch.flip(x, (2,)), x)
 
 
-def rand_flip_batch(gen, x, flip_allowed):
+def rand_flip_batch(gen, x, flip_allowed, part=None):
     """Flip each image with probability 1/2 where flip_allowed (B,) is
-    nonzero."""
-    coin = torch.rand((x.shape[0],), generator=gen, device=x.device) < 0.5
+    nonzero; part as in `rand_shift_batch`."""
+    n, lo = _drawn(x, part)
+    coin = torch.rand((n,), generator=gen,
+                      device=x.device)[lo:lo + x.shape[0]] < 0.5
     return flip_batch(x, coin & (flip_allowed != 0))
 
 
-def augment_presampled(gen, xb, yb, m_sym, r_shift=4):
-    """Flip and shift an already sampled batch."""
+def augment_presampled(gen, xb, yb, m_sym, r_shift=4, part=None):
+    """Flip and shift an already sampled batch; with part = (lo, hi, n),
+    xb and yb are rows lo:hi of a batch of n, flipped and shifted as the
+    whole batch's rows are."""
     # One-hot labels: m_sym[argmax(y)] == y @ m_sym.
     flip_allowed = yb @ m_sym.to(yb.dtype)
-    xb = rand_flip_batch(gen, xb, flip_allowed)
-    return rand_shift_batch(gen, xb, r_shift), yb
+    xb = rand_flip_batch(gen, xb, flip_allowed, part)
+    return rand_shift_batch(gen, xb, r_shift, part), yb
 
 
 def sample_indices(gen, n_examples, n, device):
@@ -68,11 +82,14 @@ def sample_indices(gen, n_examples, n, device):
     return torch.randint(0, n_examples, (n,), generator=gen, device=device)
 
 
-def augmented_batch(gen, x0, y, m_sym, n, r_shift=4):
+def augmented_batch(gen, x0, y, m_sym, n, r_shift=4, part=None):
     """A training batch of n examples sampled with replacement from
-    (x0, y), flipped and shifted."""
+    (x0, y), flipped and shifted; with part = (lo, hi, n), only its rows
+    lo:hi (a data-parallel rank's share of the same draws)."""
     idx = sample_indices(gen, x0.shape[0], n, x0.device)
-    return augment_presampled(gen, x0[idx], y[idx], m_sym, r_shift)
+    if part is not None:
+        idx = idx[part[0]:part[1]]
+    return augment_presampled(gen, x0[idx], y[idx], m_sym, r_shift, part)
 
 
 def sampled_batch(gen, x0, y, n):

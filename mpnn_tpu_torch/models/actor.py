@@ -16,6 +16,7 @@ unbounded."""
 
 import torch
 
+from ..parallel.mesh import batch_mean
 from .net import Net
 from .routed import DynRoutedMixin
 from .routing import propagate
@@ -68,4 +69,4 @@ class ActorNet(DynRoutedMixin, Net):
                 * torch.sum(torch.square(recs[l].router_x), dim=1)
                 for l in self.switches)
         zeros = torch.zeros((batch_size,), dtype=torch.float32, device=dev)
-        return torch.mean(c_err + c_cpt + c_mod + c_reg + zeros)
+        return batch_mean(c_err + c_cpt + c_mod + c_reg + zeros, ctx.data)

@@ -22,6 +22,7 @@ from functools import reduce
 
 import torch
 
+from ..parallel.mesh import batch_mean
 from .net import Net
 from .routed import DynRoutedMixin
 from .routing import propagate
@@ -93,4 +94,4 @@ class CriticNet(DynRoutedMixin, Net):
                     for l in self.layers)
         zeros = torch.zeros((batch_size,), dtype=torch.float32,
                             device=recs[self.root].p_tr.device)
-        return torch.mean(c_err + c_cre + c_mod + zeros)
+        return batch_mean(c_err + c_cre + c_mod + zeros, ctx.data)

@@ -44,12 +44,15 @@ class Ctx(Ns):
     exploration `eps` and the cost-of-compute price `k_cpt` (a float, or a
     (B,) tensor). `masks` holds the Dropout keep masks of the call
     (`Net.dropout_masks`), drawn by `Net.forward` from `rng` unless the
-    caller drew them."""
+    caller drew them. `data` is the 'data' axis of a mesh
+    (`parallel.mesh.Axis`) whose ranks share the batch, or None: under
+    one, train-mode BatchNorm's moments and the loss's batch mean are
+    over the global batch."""
 
     def __init__(self, train=False, rng=None, tau=1.0, eps=1e-6,
-                 k_cpt=0.0, masks=None):
+                 k_cpt=0.0, masks=None, data=None):
         super().__init__(train=train, rng=rng, tau=tau, eps=eps,
-                         k_cpt=k_cpt, masks=masks)
+                         k_cpt=k_cpt, masks=masks, data=data)
 
 
 class Rec(Ns):

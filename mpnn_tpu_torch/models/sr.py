@@ -6,6 +6,7 @@ per-layer error and regularization costs, trained with plain momentum SGD
 
 import torch
 
+from ..parallel.mesh import batch_mean
 from .net import Net
 
 
@@ -26,5 +27,5 @@ class SRNet(Net):
         self.route_for_stats(recs, batch_size, ctx)
         zeros = torch.zeros((batch_size,), dtype=torch.float32,
                             device=recs[self.root].p_ev.device)
-        return torch.mean(sum(recs[l].c_err + recs[l].c_mod
-                              for l in self.layers) + zeros)
+        return batch_mean(sum(recs[l].c_err + recs[l].c_mod
+                              for l in self.layers) + zeros, ctx.data)

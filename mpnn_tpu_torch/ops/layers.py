@@ -588,7 +588,8 @@ class BatchNorm(Layer):
     """Batch normalization with EMA running statistics (decay d); γ/β are
     params, m_avg / v_avg state. Train mode (`ctx.train`) normalizes with
     the batch moments, taken in fp32 whatever the activation dtype, with
-    the biased variance E[x²] - m² (not `nn.BatchNorm2d`'s), and updates
+    the biased variance E[x²] - m² (not `nn.BatchNorm2d`'s), over the
+    global batch under a mesh's data axis (`ctx.data`), and updates
     the EMA from the moments without their gradient. Eval mode normalizes
     with the running statistics and leaves them as they are."""
 
@@ -610,10 +611,11 @@ class BatchNorm(Layer):
     def apply(self, params, state, x, y, ctx):
         h = self.hypers
         if ctx.train:
-            xf = x.float()
-            dims = tuple(range(x.dim() - 1))
-            m = torch.mean(xf, dims)
-            v = torch.mean(torch.square(xf), dims) - torch.square(m)
+            # Imported here: serving (eval mode, e.g. an exported
+            # artifact) needs nothing of the parallel package.
+            from ..parallel.mesh import batch_moments
+            m, v = batch_moments(x.float(), tuple(range(x.dim() - 1)),
+                                 getattr(ctx, "data", None))
             state = {
                 "m_avg": h.d * state["m_avg"] + (1 - h.d) * m.detach(),
                 "v_avg": h.d * state["v_avg"] + (1 - h.d) * v.detach(),

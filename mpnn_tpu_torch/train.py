@@ -37,11 +37,30 @@ are those of the serial path.
 (`ops.config.pyramid_tf1`, `maxpool_tf1`) before any net is built, as
 `scripts/train-nets` does.
 
-Runs on CUDA unless --device cpu is given. Not ported: meshes (the sweep
-mesh included) and multi-host runs, and --profile-dir."""
+Meshes (`parallel`), one process per rank: --mesh auto|DxM trains
+data-parallel over D ranks (M, the 'model' axis, must be 1), or with
+--vmap-sweep over a (sweep x data) mesh, each rank training its
+n_nets / S members. In a process that no launcher started, --mesh DxM
+starts the D x M ranks itself (`torch.multiprocessing`, spawn), on one
+card if there is one (over gloo) or on the CPU; --multihost joins the
+ranks a launcher started from its environment (`multihost.initialize`),
+over NCCL where each rank has a card of its own:
+
+    python -m mpnn_tpu_torch.train synth-ac --net 4 --mesh 2x1 ...
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m mpnn_tpu_torch.train synth-ac --net 4 --multihost --mesh auto ...
+
+One rank writes each file: rank 0 the manifest and a data-parallel net's
+files, and under a sweep mesh the rank of 'data' index 0 that holds a
+member writes that member's. A rank that fails, or a collective that
+fails, fails the run.
+
+Runs on CUDA unless --device cpu is given. Not ported: the 'model' axis,
+and --profile-dir."""
 
 import json
 import os
+import sys
 import time
 from argparse import ArgumentParser
 
@@ -55,6 +74,8 @@ from .ops.layers import fold_stream
 from .models.steps import (Schedules, init_training, make_eval_split_fn,
                            make_sweep_eval_split_fn, make_sweep_train_loop,
                            make_train_loop)
+from .parallel import make_mesh, make_sweep_mesh, multihost, shard_sweep_tree
+from .parallel.mesh import world
 from .utils.desc import net_desc, render_net_desc, sweep_net_descs
 from .utils.serdes import atomic_save, read_net, write_net
 from .utils.tree import stack_trees, tree_to_host, unstack_tree
@@ -96,7 +117,10 @@ def _eval_key(seed, t):
 
 def _write_manifest(out_dir, dataset):
     """<out>/<expt>/MANIFEST.json: the dataset's provenance, so results on
-    synthetic stand-ins are never taken for real-dataset results."""
+    synthetic stand-ins are never taken for real-dataset results. Written
+    by rank 0 only."""
+    if not multihost.is_primary():
+        return
     os.makedirs(out_dir, exist_ok=True)
     prov = dataset.provenance
     if prov is None:
@@ -208,7 +232,7 @@ def _resume_from(ckpt_path, device, verbose):
 
 def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
                   batch_size, out_dir=None, net_index=0, seed=0,
-                  verbose=True, resume=False, timings=None):
+                  verbose=True, resume=False, timings=None, mesh=None):
     """Train one net on `dataset` (on the dataset's device); returns
     (params, state, vel, final_desc).
 
@@ -216,8 +240,17 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
     checkpoint that carries the momentum continues from its step. With a
     `timings` dict, it is filled with the run's steps and evaluations and
     the host seconds spent training (to the device's end of each span),
-    evaluating and writing."""
+    evaluating and writing.
+
+    With a mesh (`parallel.make_mesh`) the net trains data-parallel over
+    its 'data' axis, batch_size being the global batch: every rank starts
+    from the same state (the ranks' (t_start, params) are checked to
+    agree, then rank 0's are broadcast: a checkpoint that only some ranks
+    see fails loud), evaluates its rows of each batch, and rank 0 alone
+    writes and prints."""
     device = dataset.device
+    writer = multihost.is_primary()
+    verbose = verbose and writer
     t_start = 0
     ckpt_path = (os.path.join(out_dir, "%.4i.npy" % net_index)
                  if out_dir is not None else None)
@@ -226,13 +259,16 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
         params, state, vel, t_start = found
     else:
         params, state, vel = init_training(net, seed, device)
-        if out_dir is not None:
+        if out_dir is not None and writer:
             _fresh_log(out_dir, net_index)
-    loop = make_train_loop(net, batch_size, schedules)
+    if mesh is not None:
+        multihost.replicate_to_global(mesh, (params, state, vel), t_start,
+                                      ckpt_path)
+    loop = make_train_loop(net, batch_size, schedules, mesh=mesh)
     # The net's static price, rounded to fp32 as `mpnn_tpu` passes it.
     k_cpt = (None if schedules.k_cpt_sample is not None
              else float(np.float32(getattr(net.hypers, "k_cpt", 0.0))))
-    eval_split = make_eval_split_fn(net, batch_size)
+    eval_split = make_eval_split_fn(net, batch_size, mesh=mesh)
     x0_tr, y_tr, m_sym = dataset.train_arrays
 
     def train_span(trees, t, n):
@@ -245,7 +281,7 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
                         eval_split=eval_split, eval_key=_eval_key(seed, t))
 
     def write(t, desc, trees):
-        if out_dir is not None:
+        if out_dir is not None and writer:
             _write_epoch_outputs(out_dir, net_index, t, desc, net, *trees,
                                  verbose=verbose)
 
@@ -301,7 +337,8 @@ def _read_sweep(out_dir, n_nets, device):
 
 
 def _train_sweep(expt, expt_name, dataset, *, n_iter, t_log, batch_size,
-                 out_dir, seed, verbose=True, resume=False, timings=None):
+                 out_dir, seed, verbose=True, resume=False, timings=None,
+                 mesh=None):
     """Train a k_cpt sweep's nets at once (`make_sweep_train_loop`),
     member i drawn as the serial path draws net i (`init_training(net,
     seed + i)`), the shared batch stream from seed + 1. At every t_log
@@ -310,18 +347,33 @@ def _train_sweep(expt, expt_name, dataset, *, n_iter, t_log, batch_size,
     `train_one_net` does; with resume=True it continues from the
     members' checkpoints when `_read_sweep` accepts them. Returns
     (params_s, state_s, vel_s, descs) of the stacked trees; with a
-    `timings` dict, fills it as `train_one_net` does, plus n_nets."""
+    `timings` dict, fills it as `train_one_net` does, plus n_nets.
+
+    With a ('sweep', 'data') mesh (`parallel.make_sweep_mesh`; n_nets
+    must tile 'sweep') every rank reads or draws all members, checks that
+    the ranks agree and takes rank 0's, then keeps its own
+    (`shard_sweep_tree`); it trains and evaluates them, and the rank of
+    'data' index 0 writes their files, so each file is written once. The
+    trees and descs returned are this rank's members'."""
     k_cpts = np.asarray(expt.sweep_k_cpts, np.float32)
     n_nets = len(k_cpts)
+    if mesh is not None and n_nets % mesh.shape["sweep"] != 0:
+        raise ValueError(
+            "sweep of %d nets does not tile the %d-way 'sweep' mesh axis"
+            % (n_nets, mesh.shape["sweep"]))
     device = dataset.device
     nets = [expt.nets[i](dataset.x0_shape, dataset.y_shape)
             for i in range(n_nets)]
     net = nets[0]  # the architecture every member shares
     schedules = Schedules(lr=cfg.λ_lrn, tau=expt.tau)
-    loop = make_sweep_train_loop(net, batch_size, schedules)
-    eval_split = make_sweep_eval_split_fn(net, batch_size)
+    loop = make_sweep_train_loop(net, batch_size, schedules, mesh=mesh)
+    eval_split = make_sweep_eval_split_fn(net, batch_size, mesh=mesh)
     x0_tr, y_tr, m_sym = dataset.train_arrays
-    k_arr = torch.as_tensor(k_cpts, device=device)
+    mine = (range(n_nets) if mesh is None else
+            range(*mesh.axes["sweep"].rows(n_nets)))
+    writer = mesh is None or mesh.data.index == 0
+    verbose = verbose and multihost.is_primary()
+    k_arr = torch.as_tensor(k_cpts[mine.start:mine.stop], device=device)
 
     t_start = 0
     found = _read_sweep(out_dir, n_nets, device) if resume else None
@@ -332,27 +384,35 @@ def _train_sweep(expt, expt_name, dataset, *, n_iter, t_log, batch_size,
     else:
         members = [init_training(net, seed + i, device)
                    for i in range(n_nets)]
-        for i in range(n_nets):
-            _fresh_log(out_dir, i)
+        for i in mine:
+            if writer:
+                _fresh_log(out_dir, i)
     trees = tuple(stack_trees([m[j] for m in members]) for j in range(3))
     del members
+    if mesh is not None:
+        multihost.replicate_to_global(mesh, trees, t_start,
+                                      "every member's checkpoint")
+        trees = tuple(shard_sweep_tree(t, mesh) for t in trees)
 
     def train_span(trees, t, n):
         return loop(*trees, t, seed + 1, x0_tr, y_tr, m_sym, n, k_arr)[:3]
 
     def evaluate(t, trees):
-        return sweep_net_descs(net, dataset, trees[0], trees[1], k_cpts,
+        return sweep_net_descs(net, dataset, trees[0], trees[1],
+                               k_cpts[mine.start:mine.stop],
                                batch_size=batch_size,
                                tau=_tau_at(expt.tau, t - 1, net),
                                eval_split=eval_split,
                                eval_key=_eval_key(seed, t))
 
     def write(t, descs, trees):
+        if not writer:
+            return
         # One device-to-host copy of the stacked trees, then per-net views.
         host = tree_to_host(trees)
-        for i in range(n_nets):
-            _write_epoch_outputs(out_dir, i, t, descs[i], nets[i],
-                                 *(unstack_tree(h, i) for h in host),
+        for j, i in enumerate(mine):
+            _write_epoch_outputs(out_dir, i, t, descs[j], nets[i],
+                                 *(unstack_tree(h, j) for h in host),
                                  verbose=verbose)
 
     trees, descs, clock = _train_in_spans(
@@ -366,12 +426,14 @@ def _train_sweep(expt, expt_name, dataset, *, n_iter, t_log, batch_size,
 def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
                      net_indices=None, data_root=".", out_root="nets",
                      seed=0, verbose=True, resume=False, device="cuda",
-                     timings=None, vmap_sweep=False):
+                     timings=None, vmap_sweep=False, mesh=None):
     """Train the nets of a registry experiment one after another (all, or
     `net_indices`) on `device`; with vmap_sweep, an experiment with
     `sweep_k_cpts` and no `net_indices` trains all its nets at once
     (`_train_sweep`). With a `timings` list, one dict per net (one for the
-    whole sweep) is appended (see `train_one_net`)."""
+    whole sweep) is appended (see `train_one_net`). With a mesh, each net
+    trains data-parallel over its 'data' axis (`train_one_net`), and the
+    vmapped sweep needs a ('sweep', 'data') mesh (`_train_sweep`)."""
     expt = cfg.make_experiments()[expt_name]
     device = resolve_device(device)
     dataset = Dataset(os.path.join(data_root, expt.dataset), device=device)
@@ -384,10 +446,15 @@ def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
     _write_manifest(out_dir, dataset)
     if (vmap_sweep and getattr(expt, "sweep_k_cpts", None) is not None
             and net_indices is None):
+        if mesh is not None and "sweep" not in mesh.axis_names:
+            raise ValueError(
+                "--vmap-sweep needs a ('sweep', 'data') mesh "
+                "(parallel.make_sweep_mesh), got axes %r"
+                % (mesh.axis_names,))
         rec = {} if timings is not None else None
         _train_sweep(expt, expt_name, dataset, n_iter=n_iter, t_log=t_log,
                      batch_size=batch_size, out_dir=out_dir, seed=seed,
-                     verbose=verbose, resume=resume, timings=rec)
+                     verbose=verbose, resume=resume, timings=rec, mesh=mesh)
         if timings is not None:
             timings.append(dict(rec, expt=expt_name, net_index=None))
         return
@@ -399,7 +466,7 @@ def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
             net, dataset, schedules=schedules, tau_fn=expt.tau,
             n_iter=n_iter, t_log=t_log, batch_size=batch_size,
             out_dir=out_dir, net_index=i, seed=seed + i, verbose=verbose,
-            resume=resume, timings=rec)
+            resume=resume, timings=rec, mesh=mesh)
         if timings is not None:
             timings.append(dict(rec, expt=expt_name, net_index=i))
 
@@ -485,7 +552,42 @@ def train_adaptive_experiment(expt_name, *, n_iter=None, batch_size=None,
     return params, state, vel
 
 
-def main(argv=None):
+def _parse_mesh(parser, spec):
+    """(D, M) of a --mesh 'DxM' (M defaults to 1), or None for 'auto'."""
+    if spec == "auto":
+        return None
+    d, sep, m = spec.partition("x")
+    if not sep or not d.isdigit() or not (m.isdigit() or not m):
+        parser.error("--mesh expects 'auto' or 'DxM' (e.g. 2x1), got %r"
+                     % (spec,))
+    return int(d), int(m or 1)
+
+
+def _make_mesh(dims, vmap_sweep):
+    """The mesh of --mesh over the ranks of this run: ('sweep', 'data')
+    with --vmap-sweep, else ('data', 'model'); dims None ('auto') puts
+    every rank on the first axis."""
+    if vmap_sweep:
+        return (make_sweep_mesh() if dims is None
+                else make_sweep_mesh(n_sweep=dims[0], n_data=dims[1]))
+    return (make_mesh() if dims is None
+            else make_mesh(n_data=dims[0], n_model=dims[1]))
+
+
+def _rank_main(rank, argv, port, n_ranks):
+    """A rank that --mesh started: join the others, then train."""
+    args, parser = _parse(argv)
+    if torch.device(args.device).type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // n_ranks))
+    multihost.initialize("127.0.0.1:%d" % port, n_ranks, rank,
+                         device=args.device)
+    try:
+        _train(args, parser)
+    finally:
+        multihost.shutdown()
+
+
+def _parse(argv):
     parser = ArgumentParser(description=__doc__.split("\n\n")[0])
     names = sorted(cfg.make_experiments())
     parser.add_argument("expt", help="the experiment to perform, one of: "
@@ -517,20 +619,85 @@ def main(argv=None):
     add_tf1_flags(parser)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu on request)")
+    parser.add_argument("--mesh", default=None,
+                        help="train over a mesh of ranks, one process "
+                             "each: 'auto' (every rank on the data axis) "
+                             "or 'DxM' (data x model; M must be 1, the "
+                             "batch must divide by D). With --vmap-sweep "
+                             "the axes are (sweep x data): 'auto' puts "
+                             "every rank on 'sweep', 'SxD' e.g. 2x1; the "
+                             "sweep's nets must divide by S. Without "
+                             "--multihost, DxM starts the D x M ranks "
+                             "here and 'auto' one per card")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the ranks a launcher started (torchrun's "
+                             "RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                             "MASTER_PORT) before building the mesh; only "
+                             "rank 0 writes the files of a data-parallel "
+                             "net. Combine with --mesh auto")
     args = parser.parse_args(argv)
     if args.expt not in names:
         parser.error("unknown experiment %r (choose from %s)"
                      % (args.expt, ", ".join(names)))
+    return args, parser
+
+
+def _train(args, parser):
+    """Set the modes, build the mesh and train, in this process."""
     device = set_up_device(args.device, args.precision)
+    if args.multihost or args.mesh:
+        device = multihost.local_device(device)
     from .ops import config
     config.set_analytic_l2(args.analytic_l2)
     config.set_stacked_tails(args.stacked_tails)
     set_tf1_modes(args)
+    mesh = None
+    if args.mesh:
+        mesh = _make_mesh(_parse_mesh(parser, args.mesh), args.vmap_sweep)
     train_experiment(
         args.expt, n_iter=args.n_iter, t_log=args.t_log,
         batch_size=args.batch_size, net_indices=args.net,
         data_root=args.data_root, out_root=args.out_root, seed=args.seed,
-        resume=args.resume, device=device, vmap_sweep=args.vmap_sweep)
+        resume=args.resume, device=device, vmap_sweep=args.vmap_sweep,
+        mesh=mesh)
+    rank, n_ranks = world()
+    if n_ranks > 1:
+        # Each rank's own count of the kernel's launches (a rank's
+        # process counts only its own).
+        from .ops.kernels import fused_mcm
+        print(json.dumps({"rank": rank, "ranks": n_ranks,
+                          "mesh": None if mesh is None else mesh.shape,
+                          "device": str(device),
+                          "fused_mcm_launches": fused_mcm.launches,
+                          "fused_mcm_net_launches": fused_mcm.net_launches}),
+              flush=True)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args, parser = _parse(argv)
+    if args.multihost:
+        rank, n = multihost.initialize(device=args.device)
+        print("  [multihost: rank %i of %i]" % (rank, n), flush=True)
+        try:
+            _train(args, parser)
+        finally:
+            multihost.shutdown()
+        return
+    n_ranks = 1
+    if args.mesh:
+        dims = _parse_mesh(parser, args.mesh)
+        if dims is not None:
+            n_ranks = dims[0] * dims[1]
+        elif resolve_device(args.device).type == "cuda":
+            n_ranks = torch.cuda.device_count()
+    if n_ranks == 1:
+        _train(args, parser)
+        return
+    import torch.multiprocessing as mp
+    mp.start_processes(_rank_main,
+                       args=(argv, multihost.free_port(), n_ranks),
+                       nprocs=n_ranks, join=True, start_method="spawn")
 
 
 if __name__ == "__main__":

@@ -40,6 +40,10 @@ def _imports(path):
 def test_no_jax_or_mpnn_tpu_imports():
     files = _port_files()
     assert len(files) >= 21
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"mpnn_tpu_torch/parallel/mesh.py",
+            "mpnn_tpu_torch/parallel/multihost.py",
+            "mpnn_tpu_torch/dryrun.py"} <= rel
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "mpnn_tpu", "flax",
                                   "optax")]
@@ -72,7 +76,9 @@ def test_import_with_jax_blocked():
              "mpnn_tpu_torch.train_adaptive, mpnn_tpu_torch.models.net, "
              "mpnn_tpu_torch.export, mpnn_tpu_torch.export_net, "
              "mpnn_tpu_torch.oracle, mpnn_tpu_torch.paritycheck, "
-             "mpnn_tpu_torch.check_parity; "
+             "mpnn_tpu_torch.check_parity, mpnn_tpu_torch.parallel, "
+             "mpnn_tpu_torch.parallel.mesh, "
+             "mpnn_tpu_torch.parallel.multihost, mpnn_tpu_torch.dryrun; "
              "from mpnn_tpu_torch.ops import (Conv, MaxPool, GlobalMaxPool, "
              "MultiscaleLLN, Dropout, SquaredError, ActivityError, "
              "SuperclassCrossEntropyError); "
