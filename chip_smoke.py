@@ -105,6 +105,15 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               train phase of the same run), the counts from 0 and 20
               net-axis launches a step; sweep_train_bf16 also holds one
               sweep step to train_bf16_vs_fp32's gate.
+7a. repeat -- the fp32 flagship's serial train loop and the 8-net
+              sweep's loop, 3 steps twice from one state, in three modes
+              (default; cudnn.deterministic; that and
+              torch.use_deterministic_algorithms, warn_only): per tree
+              (params, state, velocity) the leaves that differ and the
+              worst member's relative error, and the ops that warn
+              (ROADMAP C1; not a gate); both loops' img/s in 3 windows
+              each, default and deterministic in turns; the cost of
+              check_nans (`train --debug-nans`) on their trees.
 7b. trees  -- the 47-stage actor tree (`ac_tree(k_cpt=k_cpts[4])`, fresh
               from seed 0, batch 128): tree_train_fp32_vs_plain holds one
               fp32 step at train_fp32_vs_plain's gates with 96 launches
@@ -197,12 +206,22 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               synth-ac-tree --vmap-sweep run to 10 under the same checks
               (96 launches per forward). Prints each run's seconds and
               img/s over training alone and over training, evaluation and
-              writes.
+              writes. The phase runs with deterministic algorithms, as
+              the CLI does on the card (`set_up_device`), and adds
+              synth-ac net 4 from 0 to 60 in one run with --profile-dir
+              and --debug-nans (gate 0 of ROADMAP C1): its files,
+              checkpoint and stats equal the run resumed at 40 bit for
+              bit; its Chrome trace holds 8 steps and names
+              mcm_scale_tf32; its launches are 20 x (60 steps + 3
+              evaluations x 6 batches); then a NaN forced into a param of
+              its checkpoint makes one step under debug_nans raise
+              FloatingPointError naming step 60.
 9. adaptive_cli -- `python -m mpnn_tpu_torch.train_adaptive` in processes
               of its own (ADAPTIVE_RUNS: synth-ac-tree-dynkcpt to 10 with
               t_log 5 and --stats-log, resumed to 15, and
-              synth-cr-dynkcpt to 10; then the first run again with
-              --stacked-tails into another output root): the files (the
+              synth-cr-dynkcpt to 10; and the first run again with
+              --stacked-tails into another output root; the runs from
+              scratch at once, then the resume): the files (the
               stacked run's file set the serial run's), net.npy read back
               bit for bit with its step, the resume's start, each
               process's launches and net-axis launches (its last line)
@@ -304,7 +323,14 @@ import time
 from unittest import mock
 
 import numpy as np
-import torch
+
+# The training CLIs run with deterministic algorithms on the card
+# (`mpnn_tpu_torch.set_deterministic`), whose cuBLAS setting must be in
+# place before the process's first cuBLAS handle; train_cli and
+# repeat_phase turn them on in this process.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1735,8 +1761,27 @@ def _scalar_stats(desc, path=""):
 
 
 def train_cli_phase(device):
-    """The training CLI's path: four runs of train_experiment in a
-    temporary directory, their launches counted from 0."""
+    """The training CLI's path (`_train_cli_runs`) with deterministic
+    algorithms, as the CLI's `set_up_device` sets them, the warnings of
+    ops without a deterministic form collected; the default mode after."""
+    import warnings
+    from mpnn_tpu_torch import set_deterministic
+    set_deterministic(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rec = _train_cli_runs(device)
+    finally:
+        set_deterministic(False)
+    rec["nondeterministic_ops"] = sorted({
+        str(w.message)[:200] for w in caught
+        if "determinis" in str(w.message)})
+    return rec
+
+
+def _train_cli_runs(device):
+    """The training CLI's path: runs of train_experiment in a temporary
+    directory, their launches counted from 0."""
     import contextlib
     import io
     import tempfile
@@ -1796,6 +1841,27 @@ def train_cli_phase(device):
             rows.append((expt, i, n_iter, resume, timings[0], wall, n,
                          buf.getvalue(), live[-1][3],
                          bool(same) and all(same), extra["t"]))
+        # Gate 0 (C1): synth-ac net 4 from 0 to 60 in one run, traced
+        # (--profile-dir) and NaN-checked (--debug-nans), into a root of
+        # its own; held below against the run stopped at 40 and resumed.
+        prof_root = os.path.join(d, "nets-profiled")
+        prof_dir = os.path.join(d, "profile")
+        expt, i, n_iter, _ = CLI_RUNS[1]
+        n0, timings, buf = fused_mcm.launches, [], io.StringIO()
+        t = time.perf_counter()
+        config.set_debug_nans(True)
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.train_experiment(
+                    expt, n_iter=n_iter, t_log=CLI_T_LOG,
+                    batch_size=TRAIN_BATCH, net_indices=[i], data_root=d,
+                    out_root=prof_root, device=device, timings=timings,
+                    profile_dir=prof_dir)
+        finally:
+            config.set_debug_nans(False)
+        profiled = {"wall_s": time.perf_counter() - t,
+                    "launches": fused_mcm.launches - n0,
+                    "timings": timings[0], "text": buf.getvalue()}
         sweep_root = os.path.join(d, "nets-sweep")
         sweep_rows = []
         for expt, n_iter, resume in SWEEP_CLI_RUNS:
@@ -1822,6 +1888,7 @@ def train_cli_phase(device):
                                buf.getvalue(), live[-1][3],
                                bool(same) and all(same), ckpt_ts))
         launches = fused_mcm.launches
+        gate0 = _gate0(device, d, out_root, prof_root, prof_dir, profiled)
 
         records, reached = [], {}
         for (expt, i, n_iter, resume, tm, wall, n, text, desc, same,
@@ -1973,7 +2040,7 @@ def train_cli_phase(device):
               "and through mcm_ref differ by %g at %s" % (worst, worst_path))
     return {"batch": TRAIN_BATCH, "t_log": CLI_T_LOG, "precision": "fp32",
             "prep_s": prep_s, "runs": records, "sweep_runs": sweep_records,
-            "fused_mcm_launches": launches,
+            "fused_mcm_launches": launches, "resume_vs_uninterrupted": gate0,
             "desc_kernel_vs_plain": {"max_err": worst, "at": worst_path,
                                      "n_stats": len(diffs),
                                      "tolerance": DESC_TOL},
@@ -1981,6 +2048,102 @@ def train_cli_phase(device):
                 "net": SWEEP_DESC_NET, "max_err": sweep_worst,
                 "at": sweep_worst_path, "n_stats": len(sweep_diffs),
                 "tolerance": DESC_TOL}}
+
+
+def _gate0(device, d, out_root, prof_root, prof_dir, profiled):
+    """C1's gate on the card: synth-ac net 4 trained from 0 to 60 in one
+    run (traced and NaN-checked: `profiled`) against the run stopped at
+    40 and resumed to 60 (`out_root`): the same files, the final
+    checkpoints' params, state, momentum and step bit for bit, and every
+    stats file equal. The trace names the fp32 kernel among its device
+    events; the run's launches are per_forward x (steps + evaluations x
+    eval batches), its profiled steps included. Then one step of the
+    final checkpoint with a NaN forced into a param under debug_nans
+    raises FloatingPointError naming the step."""
+    from mpnn_tpu_torch.data.dataset import Dataset
+    from mpnn_tpu_torch.experiments import make_experiments, λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import Schedules, make_train_loop
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.utils.serdes import read_net
+    from mpnn_tpu_torch.utils.tree import tree_leaves
+    expt, i, n_iter, _ = CLI_RUNS[1]
+    got, want = (os.path.join(r, expt) for r in (prof_root, out_root))
+    files = [sorted(_files_of(r)) for r in (got, want)]
+    check(files[0] == files[1], "train_cli gate 0: the uninterrupted run "
+          "wrote %s, the resumed %s" % (files[0], files[1]))
+    ckpts = [read_net(os.path.join(r, "%.4i.npy" % i), device)
+             for r in (got, want)]
+    (_, pa, sa, ea), (_, pb, sb, eb) = ckpts
+    la = tree_leaves((pa, sa, ea["vel"]))
+    lb = tree_leaves((pb, sb, eb["vel"]))
+    differ = sum(not torch.equal(a, b) for a, b in zip(la, lb))
+    worst = max(float((a - b).abs().max()) for a, b in zip(la, lb))
+    check(ea["t"] == eb["t"] == n_iter and differ == 0,
+          "train_cli gate 0: the uninterrupted run to %d and the resumed "
+          "one differ in %d of %d leaves (max abs %g; t %s / %s)"
+          % (n_iter, differ, len(la), worst, ea["t"], eb["t"]))
+    stats = [f for f in files[0] if f.endswith(".npy") and "stats" in f]
+    unequal = [f for f in stats
+               if np.load(os.path.join(got, f), allow_pickle=True)[()]
+               != np.load(os.path.join(want, f), allow_pickle=True)[()]]
+    check(not unequal, "train_cli gate 0: stats files differ: %s" % unequal)
+
+    trace = os.path.join(prof_dir, "trace.json")
+    check("[profiler trace written to %s]" % trace in profiled["text"],
+          "train_cli --profile-dir: no trace line")
+    with open(trace, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    mcm = [e for e in kernels if "mcm_scale_tf32" in e.get("name", "")]
+    # Each step's update is one "optimizer" range on the host (the card's
+    # copy of it is a "gpu_user_annotation").
+    steps = sum(e.get("name") == "optimizer"
+                and e.get("cat") == "user_annotation" for e in events)
+    e = make_experiments()[expt]
+    ds = Dataset(os.path.join(d, e.dataset), device=device)
+    net = e.nets[i](ds.x0_shape, ds.y_shape)
+    per_fwd = mcm_launches_per_forward(net)
+    eval_batches = sum(-(-len(x) // TRAIN_BATCH) for x in (ds.x0_tr,
+                                                            ds.x0_ts))
+    tm = profiled["timings"]
+    evals = n_iter // CLI_T_LOG
+    expect = per_fwd * (n_iter + evals * eval_batches)
+    check(mcm and steps == 8, "train_cli --profile-dir: %d mcm_scale_tf32 "
+          "kernels and %d steps in the trace" % (len(mcm), steps))
+    check(profiled["launches"] == expect and tm["evals"] == evals
+          and tm["steps"] == n_iter, "train_cli profiled run: %d launches, "
+          "expected %d = %d x (%d steps + %d evals x %d batches)"
+          % (profiled["launches"], expect, per_fwd, n_iter, evals,
+             eval_batches))
+
+    params, state, vel = pa, sa, ea["vel"]
+    tree_leaves(params)[0].view(-1)[0] = float("nan")
+    loop = make_train_loop(net, TRAIN_BATCH, Schedules(lr=λ_lrn, tau=τ_ds))
+    k_cpt = float(np.float32(net.hypers.k_cpt))
+    config.set_debug_nans(True)
+    try:
+        loop(params, state, vel, n_iter, 5, *ds.train_arrays, 1, k_cpt)
+        raised = None
+    except FloatingPointError as err:
+        raised = str(err)
+    finally:
+        config.set_debug_nans(False)
+    check(raised is not None and ("NaN at step %d in " % n_iter) in raised,
+          "debug_nans: a NaN forced into a param raised %r" % raised)
+    return {"run": "%s net %d to %d, uninterrupted, --profile-dir and "
+                   "--debug-nans" % (expt, i, n_iter),
+            "bit_for_bit": True, "leaves": len(la),
+            "files": len(files[0]), "stats_files_equal": len(stats),
+            "launches": profiled["launches"], "launches_per_forward":
+                per_fwd, "steps": n_iter, "evals": evals,
+            "eval_batches": eval_batches, "wall_s": profiled["wall_s"],
+            "train_s": tm["train_s"], "train_img_s":
+                n_iter * TRAIN_BATCH / tm["train_s"],
+            "trace_mb": os.path.getsize(trace) / 2 ** 20,
+            "trace_steps": steps, "trace_kernels": len(kernels),
+            "trace_mcm_scale_tf32": len(mcm),
+            "trace_kernel_names": sorted({k["name"][:60] for k in mcm})[:3],
+            "forced_nan": raised}
 
 
 # (experiment, n_iter, t_log, stats_log, resume) of the adaptive_cli phase,
@@ -2010,9 +2173,11 @@ def _records_equal(a, b):
 def adaptive_cli_phase(device):
     """The adaptive trainer's CLI, `python -m mpnn_tpu_torch.train_adaptive`,
     as separate processes on the small synthetic archive, fp32, batch 128
-    (ADAPTIVE_RUNS, then ADAPTIVE_STACKED_RUN with --stacked-tails into
+    (ADAPTIVE_RUNS, and ADAPTIVE_STACKED_RUN with --stacked-tails into
     another output root: the first run's file set, and its launches with
-    33 a forward, 9 on the net axis). Gates: the files; net.npy read
+    33 a forward, 9 on the net axis). The runs that do not resume share
+    the card at once, then the resume runs, so their rates are not one
+    process's alone. Gates: the files; net.npy read
     back by the port and
     written again equals the file bit for bit, with t = n_iter; the resume
     starts where the first run ended; each process's launches (its last
@@ -2043,88 +2208,133 @@ def adaptive_cli_phase(device):
         roots = {False: os.path.join(d, "nets"),
                  True: os.path.join(d, "nets-stacked")}
         file_sets = {}
-        for (expt, n_iter, t_log, stats_log, resume), stacked in [
-                (r, False) for r in ADAPTIVE_RUNS] + [
-                (ADAPTIVE_STACKED_RUN, True)]:
-            out_root = roots[stacked]
+        jobs = [(r, False) for r in ADAPTIVE_RUNS] + [
+            (ADAPTIVE_STACKED_RUN, True)]
+
+        def command(expt, n_iter, t_log, stats_log, resume, stacked):
             cmd = [sys.executable, "-m", "mpnn_tpu_torch.train_adaptive",
                    expt, "--n-iter", str(n_iter), "--batch-size",
                    str(TRAIN_BATCH), "--data-root", d, "--out-root",
-                   out_root]
+                   roots[stacked]]
             cmd += ["--t-log", str(t_log)] if t_log else []
             cmd += ["--stats-log"] if stats_log else []
             cmd += ["--resume"] if resume else []
-            cmd += ["--stacked-tails"] if stacked else []
-            t = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=HERE, capture_output=True,
-                                  text=True, timeout=600)
-            wall = time.perf_counter() - t
-            label = " ".join(cmd[3:4] + cmd[4:6] + cmd[12:])
-            check(proc.returncode == 0, "adaptive_cli %s: exit %d: %s"
-                  % (label, proc.returncode, proc.stderr[-2000:]))
-            tm = json.loads(proc.stdout.strip().splitlines()[-1])
-            t_start = reached.get(expt, 0) if resume else 0
-            reached[expt] = n_iter
-            chunk = min(n_iter, t_log or DEFAULT_T_LOG)
-            boundaries = [t for t in range(t_start + 1, n_iter)
-                          if t % chunk == 0] if stats_log else []
-            evals = len(k_cpts) * (len(boundaries) + 1)
-            net = registry[expt].net(ds.x0_shape, ds.y_shape)
-            config.set_stacked_tails(stacked)
-            per_fwd = mcm_launches_per_forward(net)
-            per_net = mcm_launches_per_forward(net, net_axis_only=True)
-            config.set_stacked_tails(False)
-            forwards = n_iter - t_start + evals * eval_batches
-            expect = per_fwd * forwards
-            check(tm["t_start"] == t_start and tm["evals"] == evals
-                  and tm["fused_mcm_launches"] == expect
-                  and tm["fused_mcm_net_launches"] == per_net * forwards
-                  and tm["stacked_tails"] == stacked,
-                  "adaptive_cli %s: started at %d with %d evaluations and "
-                  "%d launches (%d net-axis), expected %d, %d and %d = %d "
-                  "(%d) x (%d steps + %d x %d batches)" % (
-                      label, tm["t_start"], tm["evals"],
-                      tm["fused_mcm_launches"], tm["fused_mcm_net_launches"],
-                      t_start, evals, expect, per_fwd, per_net,
-                      n_iter - t_start, evals, eval_batches))
-            root = os.path.join(out_root, expt)
-            if not resume and (expt, n_iter) == ADAPTIVE_STACKED_RUN[:2]:
-                file_sets[stacked] = sorted(
-                    os.path.relpath(os.path.join(a, f), root)
-                    for a, _, fs in os.walk(root) for f in fs)
-            ckpt = os.path.join(root, "net.npy")
-            if resume:
-                check("[resuming %s at t=%d]" % (ckpt, t_start)
-                      in proc.stdout, "adaptive_cli %s: no resume at t=%d"
-                      % (label, t_start))
-            snaps = list(range(chunk, n_iter + 1, chunk)) if stats_log else []
-            names = (["MANIFEST.json", "net.npy"]
-                     + ["%.4i-stats.npy" % i for i in range(len(k_cpts))]
-                     + ["%.4i-stats/%.8i.npy" % (i, t_)
-                        for i in range(len(k_cpts)) for t_ in snaps])
-            missing = [x for x in names
-                       if not os.path.exists(os.path.join(root, x))]
-            check(not missing, "adaptive_cli %s: missing %s"
-                  % (label, missing))
-            raw = np.load(ckpt, allow_pickle=True)[()]
-            net_r, params, state, extra = read_net(ckpt, device)
-            again = encode_net(net_r, params, state, extra)
-            check(_records_equal(again, raw) and extra["t"] == n_iter,
-                  "adaptive_cli %s: net.npy does not read back bit for bit "
-                  "(t=%s)" % (label, extra["t"]))
-            launches += tm["fused_mcm_launches"]
-            imgs = tm["steps"] * tm["batch_size"]
-            records.append({
-                "run": label, "steps": tm["steps"], "evals": evals,
-                "eval_batches": eval_batches,
-                "launches": tm["fused_mcm_launches"],
-                "net_launches": tm["fused_mcm_net_launches"],
-                "launches_per_forward": per_fwd, "wall_s": wall,
-                "train_s": tm["train_s"], "eval_s": tm["eval_s"],
-                "write_s": tm["write_s"], "total_s": tm["total_s"],
-                "eval_s_per_eval": tm["eval_s"] / evals,
-                "train_img_s": imgs / tm["train_s"],
-                "total_img_s": imgs / tm["total_s"]})
+            return cmd + (["--stacked-tails"] if stacked else [])
+
+        # The runs that start from nothing share the card at once, then
+        # the resumes run; the checks below take the runs in order.
+        done = {}
+        for wave in (False, True):
+            started = {}
+            for j, (spec, stacked) in enumerate(jobs):
+                if spec[4] != wave:
+                    continue
+                logs = [open(os.path.join(d, "run%d.%s" % (j, x)), "w+")
+                        for x in ("out", "err")]
+                started[j] = (subprocess.Popen(
+                    command(*spec, stacked), cwd=HERE, stdout=logs[0],
+                    stderr=logs[1], text=True), logs, time.perf_counter())
+            t_end = time.perf_counter() + 600
+            try:
+                while started:
+                    for j, (proc, logs, t) in list(started.items()):
+                        if proc.poll() is None:
+                            check(time.perf_counter() < t_end,
+                                  "adaptive_cli: a run took over 600 s")
+                            continue
+                        wall = time.perf_counter() - t
+                        texts = []
+                        for f in logs:
+                            f.seek(0)
+                            texts.append(f.read())
+                            f.close()
+                        done[j] = (proc.returncode, *texts, wall)
+                        del started[j]
+                    time.sleep(0.2)
+            finally:
+                for proc, logs, _ in started.values():
+                    proc.kill()
+                    proc.wait()
+                    for f in logs:
+                        f.close()
+            # Each run is checked before the resumes change its files.
+            for j, ((expt, n_iter, t_log, stats_log, resume), stacked) \
+                    in enumerate(jobs):
+                if resume != wave:
+                    continue
+                out_root = roots[stacked]
+                cmd = command(expt, n_iter, t_log, stats_log, resume, stacked)
+                returncode, stdout, stderr, wall = done[j]
+                proc = subprocess.CompletedProcess(cmd, returncode, stdout,
+                                                   stderr)
+                label = " ".join(cmd[3:4] + cmd[4:6] + cmd[12:])
+                check(proc.returncode == 0, "adaptive_cli %s: exit %d: %s"
+                      % (label, proc.returncode, proc.stderr[-2000:]))
+                tm = json.loads(proc.stdout.strip().splitlines()[-1])
+                t_start = reached.get(expt, 0) if resume else 0
+                reached[expt] = n_iter
+                chunk = min(n_iter, t_log or DEFAULT_T_LOG)
+                boundaries = [t for t in range(t_start + 1, n_iter)
+                              if t % chunk == 0] if stats_log else []
+                evals = len(k_cpts) * (len(boundaries) + 1)
+                net = registry[expt].net(ds.x0_shape, ds.y_shape)
+                config.set_stacked_tails(stacked)
+                per_fwd = mcm_launches_per_forward(net)
+                per_net = mcm_launches_per_forward(net, net_axis_only=True)
+                config.set_stacked_tails(False)
+                forwards = n_iter - t_start + evals * eval_batches
+                expect = per_fwd * forwards
+                check(tm["t_start"] == t_start and tm["evals"] == evals
+                      and tm["fused_mcm_launches"] == expect
+                      and tm["fused_mcm_net_launches"] == per_net * forwards
+                      and tm["stacked_tails"] == stacked,
+                      "adaptive_cli %s: started at %d with %d evaluations and "
+                      "%d launches (%d net-axis), expected %d, %d and %d = %d "
+                      "(%d) x (%d steps + %d x %d batches)" % (
+                          label, tm["t_start"], tm["evals"],
+                          tm["fused_mcm_launches"],
+                          tm["fused_mcm_net_launches"],
+                          t_start, evals, expect, per_fwd, per_net,
+                          n_iter - t_start, evals, eval_batches))
+                root = os.path.join(out_root, expt)
+                if not resume and (expt, n_iter) == ADAPTIVE_STACKED_RUN[:2]:
+                    file_sets[stacked] = sorted(
+                        os.path.relpath(os.path.join(a, f), root)
+                        for a, _, fs in os.walk(root) for f in fs)
+                ckpt = os.path.join(root, "net.npy")
+                if resume:
+                    check("[resuming %s at t=%d]" % (ckpt, t_start)
+                          in proc.stdout, "adaptive_cli %s: no resume at t=%d"
+                          % (label, t_start))
+                snaps = (list(range(chunk, n_iter + 1, chunk))
+                         if stats_log else [])
+                names = (["MANIFEST.json", "net.npy"]
+                         + ["%.4i-stats.npy" % i for i in range(len(k_cpts))]
+                         + ["%.4i-stats/%.8i.npy" % (i, t_)
+                            for i in range(len(k_cpts)) for t_ in snaps])
+                missing = [x for x in names
+                           if not os.path.exists(os.path.join(root, x))]
+                check(not missing, "adaptive_cli %s: missing %s"
+                      % (label, missing))
+                raw = np.load(ckpt, allow_pickle=True)[()]
+                net_r, params, state, extra = read_net(ckpt, device)
+                again = encode_net(net_r, params, state, extra)
+                check(_records_equal(again, raw) and extra["t"] == n_iter,
+                      "adaptive_cli %s: net.npy does not read back bit for "
+                      "bit (t=%s)" % (label, extra["t"]))
+                launches += tm["fused_mcm_launches"]
+                imgs = tm["steps"] * tm["batch_size"]
+                records.append({
+                    "run": label, "steps": tm["steps"], "evals": evals,
+                    "eval_batches": eval_batches,
+                    "launches": tm["fused_mcm_launches"],
+                    "net_launches": tm["fused_mcm_net_launches"],
+                    "launches_per_forward": per_fwd, "wall_s": wall,
+                    "train_s": tm["train_s"], "eval_s": tm["eval_s"],
+                    "write_s": tm["write_s"], "total_s": tm["total_s"],
+                    "eval_s_per_eval": tm["eval_s"] / evals,
+                    "train_img_s": imgs / tm["train_s"],
+                    "total_img_s": imgs / tm["total_s"]})
 
         check(file_sets[True] == file_sets[False], "adaptive_cli: "
               "--stacked-tails wrote %s, the serial run %s"
@@ -3756,6 +3966,147 @@ def sweep_width_gap(device):
                   "members": rows} for key, rows in out.items()}
 
 
+# C1, the training step's repeat (repeat_phase): the modes, as
+# (torch.use_deterministic_algorithms, cudnn.deterministic); each repeat
+# runs REPEAT_STEPS steps twice from one state; the rates come from
+# REPEAT_WINDOWS windows of REPEAT_TIMED steps per loop and mode, the
+# modes in turns; the NaN check's cost from NAN_CHECKS calls.
+# A mode is (use_deterministic_algorithms, cudnn.deterministic,
+# fill_uninitialized_memory); TIMED_MODES are timed.
+DET_MODES = {"default": (False, False, True),
+             "cudnn_deterministic": (False, True, True),
+             "deterministic": (True, True, True),
+             "deterministic_no_fill": (True, True, False)}
+TIMED_MODES = ("default", "deterministic")
+REPEAT_STEPS = 3
+REPEAT_WINDOWS = 3
+REPEAT_TIMED = {"serial": 20, "sweep": 10}
+NAN_CHECKS = 20
+
+
+def set_modes(algorithms, cudnn, fill):
+    """The determinism switches: `torch.use_deterministic_algorithms`
+    (warn_only, as `mpnn_tpu_torch.set_deterministic` sets it, so an op
+    without a deterministic form names itself in a warning), whether it
+    fills new tensors (NaN), and cuDNN's; autotuning off."""
+    torch.use_deterministic_algorithms(algorithms, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+    torch.backends.cudnn.deterministic = cudnn
+    torch.backends.cudnn.benchmark = False
+
+
+def repeat_phase(device):
+    """C1: the fp32 flagship's serial loop and the 8-net sweep's loop,
+    each run REPEAT_STEPS steps twice from the same state in each of
+    DET_MODES: per tree (params, state, velocity) the leaves that differ,
+    the first of them, and the worst member's ||a - b|| / ||b||; the
+    warnings that name ops without a deterministic form. Then both loops'
+    img/s in windows taken in turns, default against deterministic, and
+    the cost of `check_nans` (`train --debug-nans`) over a step's trees,
+    device time included. Ends in the default mode."""
+    import warnings
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import (Schedules, check_nans,
+                                             make_sweep_train_loop,
+                                             make_train_loop)
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.utils.tree import tree_map, unstack_tree
+    config.set_compute_dtype(None)
+    sched = Schedules(lr=λ_lrn, tau=τ_ds)
+    net, *start = train_bench.build(0, device)
+    data = train_bench.train_data(net, device)
+    snet, *sstart, k_cpts = train_bench.build_sweep(N_NETS, 0, device)
+    loops = {"serial": (make_train_loop(net, TRAIN_BATCH, sched), start,
+                        None, 1),
+             "sweep": (make_sweep_train_loop(snet, TRAIN_BATCH, sched),
+                       sstart, k_cpts, N_NETS)}
+    zero = zero_grad_paths(net)
+
+    def run(name, n, trees=None, t0=0):
+        loop, first, k, _ = loops[name]
+        trees = [tree_map(torch.clone, x) for x in (trees or first)]
+        out = loop(*trees, t0, 0, *data, n, k)
+        torch.cuda.synchronize()
+        return out
+
+    def gap(name, a, b):
+        members = ([lambda x, i=i: unstack_tree(x, i) for i in range(N_NETS)]
+                   if name == "sweep" else [lambda x: x])
+        rec = {"loss_equal": torch.equal(a[3], b[3])}
+        for j, key in enumerate(("params", "state", "velocity")):
+            la, lb = _leaves(a[j]), _leaves(b[j])
+            differ = ["/".join(map(str, p)) for (p, x), (_, y)
+                      in zip(la, lb) if not torch.equal(x, y)]
+            z = frozenset() if key == "state" else zero
+            rec[key] = {"leaves_differ": len(differ), "leaves": len(la),
+                        "first_differ": differ[:3],
+                        "worst_tree": max(tree_errs(m(a[j]), m(b[j]), z)[
+                            "tree"] for m in members)}
+        rec["bit_for_bit"] = rec["loss_equal"] and not any(
+            rec[k]["leaves_differ"] for k in ("params", "state", "velocity"))
+        return rec
+
+    repeat, nan_ms = {}, {}
+    try:
+        for mode, flags in DET_MODES.items():
+            set_modes(*flags)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                rec = {}
+                for name in loops:
+                    run(name, 1)
+                    rec[name] = gap(name, run(name, REPEAT_STEPS),
+                                    run(name, REPEAT_STEPS))
+            rec["nondeterministic_ops"] = sorted({
+                str(w.message)[:200] for w in caught
+                if "determinis" in str(w.message)})
+            repeat[mode] = rec
+        rates = {name: {m: [] for m in TIMED_MODES} for name in loops}
+        trees = {name: run(name, 1)[:3] for name in loops}
+        for w in range(REPEAT_WINDOWS):
+            for mode in TIMED_MODES:
+                set_modes(*DET_MODES[mode])
+                for name, (loop, _, k, n_nets) in loops.items():
+                    n = REPEAT_TIMED[name]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trees[name] = loop(*trees[name], 1 + w * n, 0, *data, n,
+                                       k)[:3]
+                    torch.cuda.synchronize()
+                    rates[name][mode].append(n * n_nets * TRAIN_BATCH
+                                             / (time.perf_counter() - t0))
+        for name, (params, state, vel) in trees.items():
+            # A step's trees: the loss, gradients shaped as the params,
+            # the params, state and velocity.
+            loss = torch.ones(N_NETS if name == "sweep" else (),
+                              device=device)
+            times = []
+            for _ in range(NAN_CHECKS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                check_nans(0, loss=loss, gradients=vel, params=params,
+                           state=state, velocity=vel)
+                times.append(time.perf_counter() - t0)
+            nan_ms[name] = statistics.median(times) * 1e3
+    finally:
+        set_modes(*DET_MODES["default"])
+    timing = {}
+    for name, (_, _, _, n_nets) in loops.items():
+        med = {m: statistics.median(r) for m, r in rates[name].items()}
+        step_ms = n_nets * TRAIN_BATCH * 1e3 / med["default"]
+        timing[name] = {
+            "img_s": med, "window_img_s": rates[name],
+            "cost": {m: 1 - med[m] / med["default"] for m in TIMED_MODES
+                     if m != "default"},
+            "step_ms": step_ms, "check_nans_ms": nan_ms[name],
+            "check_nans_share": nan_ms[name] / step_ms}
+    return {"batch": TRAIN_BATCH, "nets": N_NETS, "steps": REPEAT_STEPS,
+            "cublas_workspace_config":
+                os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+            "repeat": repeat, "timing": timing}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3815,6 +4166,13 @@ def main():
     sweep["bf16"]["bf16_vs_fp32"] = sweep_bf16_vs_fp32(device)
     for dt, rec in sweep.items():
         phase("sweep_train_" + dt, **rec)
+
+    # 7a. C1: the serial and sweep steps' repeat with and without
+    # deterministic algorithms, their rates in both modes, the NaN
+    # check's cost.
+    t = time.perf_counter()
+    phase("repeat", **repeat_phase(device),
+          phase_s=time.perf_counter() - t)
 
     # 7b. the 47-stage actor tree: one fp32 step against mcm_ref, its
     # training main path in each precision beside the chain's rate, then the
@@ -3877,8 +4235,9 @@ def main():
 
     # 8. the training CLI's path, serial and --vmap-sweep, its launches
     # counted from 0.
+    t = time.perf_counter()
     cli = train_cli_phase(device)
-    phase("train_cli", **cli)
+    phase("train_cli", **cli, phase_s=time.perf_counter() - t)
 
     # 9. the adaptive trainer's CLI, in processes of its own.
     adaptive = adaptive_cli_phase(device)
@@ -3979,6 +4338,8 @@ def main():
         "launches": train["fp32"]["fused_mcm_launches"],
         "launches_on": "the fp32 training main path (train_fp32), counted "
                        "from 0",
+        "train_cli_profiled_launches":
+            cli["resume_vs_uninterrupted"]["launches"],
         "sweep_launches": sweep["fp32"]["fused_mcm_net_launches"],
         "tree_launches": {"tree_train_fp32":
                           tree_train["fp32"]["fused_mcm_launches"],

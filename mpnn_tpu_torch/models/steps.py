@@ -61,7 +61,7 @@ from ..data.augment import augment_presampled, augmented_batch
 from ..ops import config as ops_config
 from ..ops.layers import fold_stream
 from ..parallel.mesh import all_reduce_flat
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_leaves, tree_map, tree_paths
 from .net import Ctx, _hyper
 from .optim import (momentum_init, momentum_update, talr_scale_grads,
                     tree_l2_decay)
@@ -299,9 +299,38 @@ def _train_step_body(net, batch_size, schedules, r_shift=4,
             grads, c_tot = scale_grads(params, grads, p_tr_by_uid, c_tot)
             params, vel = momentum_update(params, vel, grads,
                                           schedules.lr(t), mu)
+        if ops_config.debug_nans:
+            check_nans(t, loss=c_tot, gradients=grads, params=params,
+                       state=new_state, velocity=vel)
         return params, new_state, vel, c_tot
 
     return step
+
+
+def check_nans(t, **trees):
+    """Raise FloatingPointError if a leaf of `trees` holds a NaN, naming
+    step t and the first such leaf (in the order of the keywords, then
+    `tree_leaves`' order); Inf passes, as under jax_debug_nans. One fused
+    check: a leaf's 2-norm is NaN iff the leaf holds a NaN (its squares
+    are never negative, so Inf + -Inf cannot arise), the norms of every
+    leaf come from one `torch._foreach_norm`, and one host read brings
+    their flags back. The train steps call it after the update under
+    `ops.config.debug_nans` (`train --debug-nans`)."""
+    names, leaves = [], []
+    for name, tree in trees.items():
+        got = tree_leaves(tree)
+        names += [name] * len(got)
+        leaves += got
+    bad = torch.isnan(torch.stack(torch._foreach_norm(leaves))).cpu()
+    if not bad.any():
+        return
+    first = int(bad.nonzero()[0, 0])
+    name = names[first]
+    path = tree_paths(trees[name])[first - names.index(name)]
+    raise FloatingPointError(
+        "NaN at step %d in %s (%d of %d leaves hold a NaN)"
+        % (t, name + ("/" + path if path else ""), int(bad.sum()),
+           len(leaves)))
 
 
 def _grad_transform(net):
@@ -401,13 +430,13 @@ def _spans(t0, n_steps, sample_tile):
 
 
 def _run_spans(step, batch_size, sample_tile, carry, t0, seed, x0_tr,
-               y_tr, m_sym, n_steps, k_cpt, part=None):
+               y_tr, m_sym, n_steps, k_cpt, part=None, on_step=None):
     """The chunked loop shared by `make_train_loop` and
     `make_sweep_train_loop` (the counterpart of `mpnn_tpu`'s
     `_tiled_scan_loop`): per span one gather from (seed, t_first), of this
     rank's rows under `part`, then `step` on each of its batches with the
-    generator re-seeded from (seed, t). Returns (params, state, vel,
-    losses[n_steps, ...])."""
+    generator re-seeded from (seed, t), and `on_step(t)` after it where
+    given. Returns (params, state, vel, losses[n_steps, ...])."""
     params, state, vel = carry
     gen = torch.Generator(device=x0_tr.device)
     sample_span = _chunk_sampler(batch_size, x0_tr, y_tr, part)
@@ -420,6 +449,8 @@ def _run_spans(step, batch_size, sample_tile, carry, t0, seed, x0_tr,
             params, state, vel, c = step(params, state, vel, t, gen, xc[i],
                                          yc[i], m_sym, k_cpt)
             cs.append(c)
+            if on_step is not None:
+                on_step(t)
     return params, state, vel, torch.stack(cs)
 
 
@@ -428,7 +459,7 @@ def make_train_loop(net, batch_size, schedules, r_shift=4, sample_tile=256,
     """Chunked training: n_steps train steps in one call.
 
     loop(params, state, vel, t0, seed, x0_tr, y_tr, m_sym, n_steps,
-         k_cpt=None) -> (params, state, vel, losses[n_steps])
+         k_cpt=None, on_step=None) -> (params, state, vel, losses[n_steps])
 
     `seed` is an integer. Every `sample_tile` steps one gather pulls the
     tile's batches from the training split (`_chunk_sampler`); each step
@@ -439,16 +470,17 @@ def make_train_loop(net, batch_size, schedules, r_shift=4, sample_tile=256,
     loop returns. The losses stay on the device and the loop makes no
     host synchronisation. With a mesh, each step is `make_train_step`'s
     data-parallel step, and each span gathers only this rank's rows of
-    its batches; the losses are the global batch's."""
+    its batches; the losses are the global batch's. `on_step(t)`, where
+    given, is called after each step t (`train --profile-dir`'s hook)."""
     step = _train_step_body(net, batch_size, schedules, r_shift,
                             presampled=True, mesh=mesh)
     part = _data_part(mesh, batch_size)[1]
 
     def loop(params, state, vel, t0, seed, x0_tr, y_tr, m_sym, n_steps,
-             k_cpt=None):
+             k_cpt=None, on_step=None):
         return _packed(net, 0, lambda trees: _run_spans(
             step, batch_size, sample_tile, trees, t0, seed, x0_tr, y_tr,
-            m_sym, n_steps, k_cpt, part), (params, state, vel))
+            m_sym, n_steps, k_cpt, part, on_step), (params, state, vel))
 
     return loop
 
@@ -548,6 +580,9 @@ def _sweep_step_body(net, batch_size, schedules, r_shift=4, mesh=None):
             grads, c = scale_grads(params_s, grads, p_tr_by_uid, c)
             params_s, vel_s = momentum_update(params_s, vel_s, grads,
                                               schedules.lr(t), mu)
+        if ops_config.debug_nans:
+            check_nans(t, loss=c, gradients=grads, params=params_s,
+                       state=state_s, velocity=vel_s)
         return params_s, state_s, vel_s, c
 
     return step

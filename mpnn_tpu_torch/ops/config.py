@@ -95,3 +95,17 @@ maxpool_tf1 = False
 def set_maxpool_tf1(flag):
     global maxpool_tf1
     maxpool_tf1 = bool(flag)
+
+
+# NaN trap of the train steps (`models/steps.py:check_nans`, the
+# counterpart of `jax_debug_nans` under `train --debug-nans`): after each
+# step, one check over the loss, the gradients and the updated params,
+# state and velocity, one host read, and FloatingPointError naming the
+# step and the first NaN leaf. Inf passes, as under jax_debug_nans. Off by
+# default.
+debug_nans = False
+
+
+def set_debug_nans(flag):
+    global debug_nans
+    debug_nans = bool(flag)

@@ -55,8 +55,22 @@ files, and under a sweep mesh the rank of 'data' index 0 that holds a
 member writes that member's. A rank that fails, or a collective that
 fails, fails the run.
 
-Runs on CUDA unless --device cpu is given. Not ported: the 'model' axis,
-and --profile-dir."""
+--profile-dir DIR traces the serial loop as `mpnn_tpu` does: 2 warm-up
+steps, then 8 steps under torch.profiler (CPU and CUDA activities), the
+Chrome trace written to DIR/trace.json (DIR/rank<r>/ under a mesh of
+several ranks); those 10 steps are training steps, and a t_log boundary
+inside them writes nothing. The loop's spans, and so its draws, are
+those of a run without the flag. A run of 10 steps or fewer is refused
+(`mpnn_tpu` would write a checkpoint labelled n_iter after 10 steps), as
+is --vmap-sweep. --debug-nans, the counterpart of jax_debug_nans, checks
+the loss, the gradients and the updated params, state and velocity after
+every step (`models.steps.check_nans`) and raises FloatingPointError at
+the first NaN, naming the step and the leaf.
+
+Runs on CUDA unless --device cpu is given; there with deterministic
+algorithms (`set_up_device(..., deterministic=True)`, as the other
+training entry points), so a resumed run repeats the uninterrupted one
+bit for bit. Not ported: the 'model' axis."""
 
 import json
 import os
@@ -171,16 +185,17 @@ def _save_snapshot(out_dir, i, t, desc):
 
 
 def _train_in_spans(trees, train_span, evaluate, write, *, t_start, n_iter,
-                    t_log, device, verbose, tag="", start_evaluated=True):
+                    t_log, device, verbose, tag="", start_evaluated=True,
+                    quiet_until=None):
     """Train from t_start to n_iter in spans that end on t_log boundaries
     (`trees = train_span(trees, t, n)`, one call a span, no host round
-    trip inside it); at every boundary, and at n_iter off one, `desc =
-    evaluate(t, trees)` and `write(t, desc, trees)`. A run resumed at
-    t_start = n_iter is evaluated again unless start_evaluated (its
-    checkpoint was written with its evaluation). Returns (trees, the
-    last desc, clock): the host seconds spent training (to the device's
-    end of each span), evaluating and writing, the evaluations, and the
-    whole run's seconds."""
+    trip inside it); at every boundary after quiet_until (if given), and
+    at n_iter off one, `desc = evaluate(t, trees)` and `write(t, desc,
+    trees)`. A run resumed at t_start = n_iter is evaluated again unless
+    start_evaluated (its checkpoint was written with its evaluation).
+    Returns (trees, the last desc, clock): the host seconds spent
+    training (to the device's end of each span), evaluating and writing,
+    the evaluations, and the whole run's seconds."""
     clock = {"train_s": 0.0, "eval_s": 0.0, "write_s": 0.0, "evals": 0}
     desc = None
 
@@ -207,7 +222,7 @@ def _train_in_spans(trees, train_span, evaluate, write, *, t_start, n_iter,
         if verbose:
             print("  --- Iteration %i%s ---\r" % (t, tag), end="",
                   flush=True)
-        if t % t_log == 0:
+        if t % t_log == 0 and (quiet_until is None or t > quiet_until):
             desc = eval_and_write(t)
             last_written = t
     if last_written != n_iter:
@@ -232,7 +247,8 @@ def _resume_from(ckpt_path, device, verbose):
 
 def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
                   batch_size, out_dir=None, net_index=0, seed=0,
-                  verbose=True, resume=False, timings=None, mesh=None):
+                  verbose=True, resume=False, timings=None, mesh=None,
+                  profile_dir=None):
     """Train one net on `dataset` (on the dataset's device); returns
     (params, state, vel, final_desc).
 
@@ -247,7 +263,11 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
     from the same state (the ranks' (t_start, params) are checked to
     agree, then rank 0's are broadcast: a checkpoint that only some ranks
     see fails loud), evaluates its rows of each batch, and rank 0 alone
-    writes and prints."""
+    writes and prints.
+
+    With profile_dir, the first PROFILE_WARMUP steps run untraced and the
+    next PROFILE_STEPS under torch.profiler (`_step_profiler`); a t_log
+    boundary among them writes nothing, as in `mpnn_tpu`."""
     device = dataset.device
     writer = multihost.is_primary()
     verbose = verbose and writer
@@ -271,8 +291,15 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
     eval_split = make_eval_split_fn(net, batch_size, mesh=mesh)
     x0_tr, y_tr, m_sym = dataset.train_arrays
 
+    on_step, quiet_until = None, None
+    if profile_dir is not None:
+        on_step = _step_profiler(profile_dir, t_start, n_iter, device,
+                                 verbose)
+        quiet_until = t_start + PROFILE_WARMUP + PROFILE_STEPS
+
     def train_span(trees, t, n):
-        return loop(*trees, t, seed + 1, x0_tr, y_tr, m_sym, n, k_cpt)[:3]
+        return loop(*trees, t, seed + 1, x0_tr, y_tr, m_sym, n, k_cpt,
+                    on_step=on_step)[:3]
 
     def evaluate(t, trees):
         return net_desc(net, dataset, trees[0], trees[1],
@@ -287,9 +314,59 @@ def train_one_net(net, dataset, *, schedules, tau_fn, n_iter, t_log,
 
     (params, state, vel), desc, clock = _train_in_spans(
         (params, state, vel), train_span, evaluate, write, t_start=t_start,
-        n_iter=n_iter, t_log=t_log, device=device, verbose=verbose)
+        n_iter=n_iter, t_log=t_log, device=device, verbose=verbose,
+        quiet_until=quiet_until)
     _report(clock, t_start, n_iter, batch_size, 1, verbose, timings)
     return params, state, vel, desc
+
+
+# --profile-dir: untraced warm-up steps, then traced steps (`mpnn_tpu/
+# train.py:183-196`).
+PROFILE_WARMUP = 2
+PROFILE_STEPS = 8
+
+
+def _step_profiler(profile_dir, t_start, n_iter, device, verbose):
+    """on_step(t), the train loop's hook for --profile-dir: after step
+    t_start + PROFILE_WARMUP - 1 it starts torch.profiler (CPU activity,
+    and CUDA's on a card), after PROFILE_STEPS more it stops it and writes
+    the Chrome trace to profile_dir/trace.json (profile_dir/rank<r>/
+    where the run has several ranks), the device synchronized at both
+    ends. The loop's spans and draws are those of a run without it. A
+    run with no step left after the traced ones is refused: `mpnn_tpu`
+    trains those steps anyway and then writes a checkpoint labelled
+    n_iter (or, at exactly 10 steps, none)."""
+    from torch.profiler import ProfilerActivity, profile
+    n = PROFILE_WARMUP + PROFILE_STEPS
+    if n_iter - t_start <= n:
+        raise ValueError(
+            "--profile-dir trains %d steps (%d warm-up, %d traced) before "
+            "the first write: it needs more than %d steps to run, got %d "
+            "(t=%d to n_iter=%d)" % (n, PROFILE_WARMUP, PROFILE_STEPS, n,
+                                     n_iter - t_start, t_start, n_iter))
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    first = t_start + PROFILE_WARMUP
+
+    def on_step(t):
+        if t == first - 1:
+            synchronize(device)
+            prof.start()
+        elif t == first + PROFILE_STEPS - 1:
+            synchronize(device)
+            prof.stop()
+            rank, n_ranks = world()
+            out = (profile_dir if n_ranks == 1
+                   else os.path.join(profile_dir, "rank%d" % rank))
+            os.makedirs(out, exist_ok=True)
+            path = os.path.join(out, "trace.json")
+            prof.export_chrome_trace(path)
+            if verbose or n_ranks > 1:
+                print("  [profiler trace written to %s]" % path, flush=True)
+
+    return on_step
 
 
 def _report(clock, t_start, n_iter, batch_size, n_nets, verbose, timings):
@@ -426,14 +503,17 @@ def _train_sweep(expt, expt_name, dataset, *, n_iter, t_log, batch_size,
 def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
                      net_indices=None, data_root=".", out_root="nets",
                      seed=0, verbose=True, resume=False, device="cuda",
-                     timings=None, vmap_sweep=False, mesh=None):
+                     timings=None, vmap_sweep=False, mesh=None,
+                     profile_dir=None):
     """Train the nets of a registry experiment one after another (all, or
     `net_indices`) on `device`; with vmap_sweep, an experiment with
     `sweep_k_cpts` and no `net_indices` trains all its nets at once
     (`_train_sweep`). With a `timings` list, one dict per net (one for the
     whole sweep) is appended (see `train_one_net`). With a mesh, each net
     trains data-parallel over its 'data' axis (`train_one_net`), and the
-    vmapped sweep needs a ('sweep', 'data') mesh (`_train_sweep`)."""
+    vmapped sweep needs a ('sweep', 'data') mesh (`_train_sweep`).
+    profile_dir traces each net's loop (`train_one_net`); the vmapped
+    sweep refuses it, as `mpnn_tpu` does."""
     expt = cfg.make_experiments()[expt_name]
     device = resolve_device(device)
     dataset = Dataset(os.path.join(data_root, expt.dataset), device=device)
@@ -443,9 +523,12 @@ def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
     out_dir = os.path.join(out_root, expt_name)
     indices = (net_indices if net_indices is not None
                else range(len(expt.nets)))
-    _write_manifest(out_dir, dataset)
     if (vmap_sweep and getattr(expt, "sweep_k_cpts", None) is not None
             and net_indices is None):
+        if profile_dir is not None:
+            raise ValueError(
+                "--vmap-sweep does not support profile_dir; run serially")
+        _write_manifest(out_dir, dataset)
         if mesh is not None and "sweep" not in mesh.axis_names:
             raise ValueError(
                 "--vmap-sweep needs a ('sweep', 'data') mesh "
@@ -458,6 +541,7 @@ def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
         if timings is not None:
             timings.append(dict(rec, expt=expt_name, net_index=None))
         return
+    _write_manifest(out_dir, dataset)
     for i in indices:
         net = expt.nets[i](dataset.x0_shape, dataset.y_shape)
         schedules = Schedules(lr=cfg.λ_lrn, tau=expt.tau)
@@ -466,7 +550,7 @@ def train_experiment(expt_name, *, n_iter=None, t_log=None, batch_size=None,
             net, dataset, schedules=schedules, tau_fn=expt.tau,
             n_iter=n_iter, t_log=t_log, batch_size=batch_size,
             out_dir=out_dir, net_index=i, seed=seed + i, verbose=verbose,
-            resume=resume, timings=rec, mesh=mesh)
+            resume=resume, timings=rec, mesh=mesh, profile_dir=profile_dir)
         if timings is not None:
             timings.append(dict(rec, expt=expt_name, net_index=i))
 
@@ -619,6 +703,16 @@ def _parse(argv):
     add_tf1_flags(parser)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu on request)")
+    parser.add_argument("--profile-dir", default=None,
+                        help="trace %d steps of the loop after %d warm-up "
+                             "steps with torch.profiler and write the "
+                             "Chrome trace to DIR/trace.json (serial "
+                             "path only)" % (PROFILE_STEPS, PROFILE_WARMUP))
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="check the loss, gradients, params, state and "
+                             "velocity for NaN after every step and raise "
+                             "FloatingPointError at the first, naming the "
+                             "step (the counterpart of jax_debug_nans)")
     parser.add_argument("--mesh", default=None,
                         help="train over a mesh of ranks, one process "
                              "each: 'auto' (every rank on the data axis) "
@@ -644,12 +738,14 @@ def _parse(argv):
 
 def _train(args, parser):
     """Set the modes, build the mesh and train, in this process."""
-    device = set_up_device(args.device, args.precision)
+    device = set_up_device(args.device, args.precision,
+                           deterministic=True)
     if args.multihost or args.mesh:
         device = multihost.local_device(device)
     from .ops import config
     config.set_analytic_l2(args.analytic_l2)
     config.set_stacked_tails(args.stacked_tails)
+    config.set_debug_nans(args.debug_nans)
     set_tf1_modes(args)
     mesh = None
     if args.mesh:
@@ -659,7 +755,7 @@ def _train(args, parser):
         batch_size=args.batch_size, net_indices=args.net,
         data_root=args.data_root, out_root=args.out_root, seed=args.seed,
         resume=args.resume, device=device, vmap_sweep=args.vmap_sweep,
-        mesh=mesh)
+        mesh=mesh, profile_dir=args.profile_dir)
     rank, n_ranks = world()
     if n_ranks > 1:
         # Each rank's own count of the kernel's launches (a rank's

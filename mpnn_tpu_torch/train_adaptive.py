@@ -18,7 +18,9 @@ vmapped template (`ops.config.stacked_tails`), each tail stage one launch
 of fused_mcm's net axis, and the training loop carries them pre-stacked;
 the files are those of the serial path.
 
-Runs on CUDA unless --device cpu is given; fp32 runs with TF32 off. The
+Runs on CUDA unless --device cpu is given; fp32 runs with TF32 off, and
+with deterministic algorithms (`set_up_device`), so a resumed run repeats
+the uninterrupted one. The
 last line is one JSON object: the run's steps, evaluations (one per
 price) and host seconds (`train.train_adaptive_experiment`'s timings),
 and the fused_mcm kernel launches it made (`fused_mcm_launches`, of which
@@ -68,7 +70,8 @@ def main(argv=None):
     from .ops import config
     from .ops.kernels import fused_mcm
     from .train import train_adaptive_experiment
-    device = set_up_device(args.device, args.precision)
+    device = set_up_device(args.device, args.precision,
+                           deterministic=True)
     config.set_stacked_tails(args.stacked_tails)
     set_tf1_modes(args)
     n0, m0, timings = fused_mcm.launches, fused_mcm.net_launches, {}

@@ -34,7 +34,8 @@ line: the device time per step split into the fused_mcm forward, the
 stage's backward through `mcm_ref`, the optimizer (TALR and momentum) and
 the rest, the device operations per step, and the device's idle share.
 
-Runs on CUDA unless --device cpu is given.
+Runs on CUDA unless --device cpu is given; there with deterministic
+algorithms, as the training CLIs run (`set_up_device`).
 
     python -m mpnn_tpu_torch.train_bench --precision bf16
     python -m mpnn_tpu_torch.train_bench --sweep 8 --precision bf16
@@ -192,7 +193,8 @@ def main(argv=None):
     from .ops import config
     from .ops.kernels import fused_mcm
 
-    device = set_up_device(args.device, args.precision)
+    device = set_up_device(args.device, args.precision,
+                           deterministic=True)
     config.set_stacked_tails(args.stacked_tails)
 
     B = args.batch_size

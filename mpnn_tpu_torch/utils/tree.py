@@ -20,8 +20,34 @@ def tree_map(fn, tree, *rest):
 def tree_leaves(tree):
     """The leaves of `tree`, in `tree_map`'s order."""
     out = []
-    tree_map(out.append, tree)
+    _collect(tree, out)
     return out
+
+
+def _collect(tree, out):
+    """Append the leaves of `tree` to `out` (a module-level function: a
+    recursive closure would keep the leaves alive until the garbage
+    collector ran)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _collect(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _collect(v, out)
+    else:
+        out.append(tree)
+
+
+def tree_paths(tree, prefix=""):
+    """The '/'-joined keys and indices of each leaf of `tree`, in
+    `tree_leaves`' order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in tree_paths(v, "%s%s/" % (prefix, k))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, "%s%d/" % (prefix, i))]
+    return [prefix.rstrip("/")]
 
 
 def stack_trees(trees):

@@ -33,6 +33,7 @@ from mpnn_tpu_torch.train import train_adaptive_experiment
 from tests.test_torch_cli import _files, _schema
 from tests.test_torch_sr_cr import build_chain
 from tests.test_torch_tree import build_tree
+from tests.torch_threads import share_cores  # noqa: F401
 
 DESC_TOL = 1e-4  # per scalar stat, times max(1, |stat|)
 

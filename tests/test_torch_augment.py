@@ -15,6 +15,7 @@ from mpnn_tpu.data import augment as JA
 from mpnn_tpu_torch.data import augment as TA
 
 from .test_augment import np_shift_oracle
+from tests.torch_threads import share_cores  # noqa: F401
 
 
 def _draws_shift(key, b, r):

@@ -11,6 +11,7 @@ import torch
 
 from mpnn_tpu_torch import infer_bench, kernel_bench
 from mpnn_tpu_torch.experiments import arch, k_cpts
+from tests.torch_threads import share_cores  # noqa: F401
 
 
 def test_infer_bench_reports_median_of_windows(capsys):

@@ -21,6 +21,7 @@ from mpnn_tpu_torch.utils.serdes import from_numpy_tree
 from tests.test_torch_train import (EPS, K_CPT, TAU, _batch,
                                     _jax_loss_and_grads, _np, _pair, _paths,
                                     _port_loss_and_grads)
+from tests.torch_threads import share_cores  # noqa: F401
 
 LOSS_TOL = 1e-3  # port bf16 loss against JAX bf16 loss, relative
 TREE_FACTOR = 2.0  # port's bf16-to-fp32 distance over JAX's, whole tree

@@ -24,6 +24,7 @@ from mpnn_tpu_torch import experiments as tcfg
 from mpnn_tpu_torch import train as ttrain
 from mpnn_tpu_torch.ops import layers as T
 from tests.test_torch_sr_cr import build_chain
+from tests.torch_threads import share_cores  # noqa: F401
 
 
 def test_registry_matches_jax_chain_entries():

@@ -13,6 +13,7 @@ from mpnn_tpu.data import prep as jprep
 from mpnn_tpu.data.dataset import Dataset as JDataset
 from mpnn_tpu_torch.data import prep as tprep
 from mpnn_tpu_torch.data.dataset import Dataset as TDataset
+from tests.torch_threads import share_cores  # noqa: F401
 
 
 @pytest.fixture(scope="module")

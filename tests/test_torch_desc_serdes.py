@@ -33,6 +33,7 @@ from tests.test_torch_sr_cr import build_chain, random_pair
 from tests.test_torch_train import EPS, K_CPT, TAU, _jax_run
 from mpnn_tpu.ops import layers as J
 from mpnn_tpu_torch.ops import layers as T
+from tests.torch_threads import share_cores  # noqa: F401
 
 EB = 16  # eval batch: both splits below need padding
 VALUE_TOL = 1e-5

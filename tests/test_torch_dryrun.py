@@ -10,6 +10,8 @@ import sys
 
 import pytest
 
+from tests.torch_threads import share_cores  # noqa: F401
+
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 

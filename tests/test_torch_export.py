@@ -30,6 +30,7 @@ from mpnn_tpu_torch.ops import config, kernels
 from mpnn_tpu_torch.utils.serdes import write_net
 
 from .test_torch_infer import B, _assert_same, _nets
+from tests.torch_threads import share_cores  # noqa: F401
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 KEYS = ("probs", "exit_idx", "ops", "forced")

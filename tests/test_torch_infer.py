@@ -21,6 +21,7 @@ from mpnn_tpu_torch.models.infer import chain_stages as t_chain_stages
 from mpnn_tpu_torch.models.infer import make_routed_infer_fn as t_infer
 from mpnn_tpu_torch.ops import layers as T
 from mpnn_tpu_torch.utils.serdes import from_numpy_tree
+from tests.torch_threads import share_cores  # noqa: F401
 
 B = 48
 ARCH = [[8, 8, 8], [8, 8], [8]]

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of mpnn_tpu_torch, and not
 chip_smoke.py, imports jax or mpnn_tpu; the package and its entry point run
-with jax blocked; the entry point refuses to run on the CPU unless asked."""
+with jax blocked, and all but the figures without matplotlib; the entry
+point refuses to run on the CPU unless asked."""
 
 import ast
 import json
@@ -12,6 +13,8 @@ import sys
 
 import pytest
 import torch
+
+from tests.torch_threads import share_cores  # noqa: F401
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(REPO, "mpnn_tpu_torch")
@@ -78,7 +81,11 @@ def test_import_with_jax_blocked():
              "mpnn_tpu_torch.oracle, mpnn_tpu_torch.paritycheck, "
              "mpnn_tpu_torch.check_parity, mpnn_tpu_torch.parallel, "
              "mpnn_tpu_torch.parallel.mesh, "
-             "mpnn_tpu_torch.parallel.multihost, mpnn_tpu_torch.dryrun; "
+             "mpnn_tpu_torch.parallel.multihost, mpnn_tpu_torch.dryrun, "
+             "mpnn_tpu_torch.figures, mpnn_tpu_torch.viz, "
+             "mpnn_tpu_torch.viz.loading, mpnn_tpu_torch.viz.acc_eff, "
+             "mpnn_tpu_torch.viz.nld, mpnn_tpu_torch.viz.routing, "
+             "mpnn_tpu_torch.viz.pres; "
              "from mpnn_tpu_torch.ops import (Conv, MaxPool, GlobalMaxPool, "
              "MultiscaleLLN, Dropout, SquaredError, ActivityError, "
              "SuperclassCrossEntropyError); "
@@ -87,6 +94,23 @@ def test_import_with_jax_blocked():
              "print('ok')")
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_entry_points_import_without_matplotlib():
+    """The card's machine has no matplotlib: the package and every
+    training, serving, export and smoke entry point import without it,
+    and none of them pulls in the figures."""
+    r = _run("sys.modules['matplotlib'] = None; "
+             "import mpnn_tpu_torch, mpnn_tpu_torch.train, "
+             "mpnn_tpu_torch.train_adaptive, mpnn_tpu_torch.train_bench, "
+             "mpnn_tpu_torch.infer_bench, mpnn_tpu_torch.kernel_bench, "
+             "mpnn_tpu_torch.export, mpnn_tpu_torch.export_net, "
+             "mpnn_tpu_torch.check_parity, mpnn_tpu_torch.dryrun, "
+             "mpnn_tpu_torch.data.prep, mpnn_tpu_torch.figures, chip_smoke; "
+             "print(sorted(m for m in sys.modules "
+             "if m.startswith('mpnn_tpu_torch.viz')))")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
 
 
 def test_infer_bench_cpu_with_jax_blocked():
@@ -129,6 +153,8 @@ def test_train_bench_cpu_with_jax_blocked(tmp_path):
     ("infer_bench", ["--batch-size", "8", "--n-batches", "1"]),
     ("train_bench", ["--batch-size", "8", "--n-steps", "1"]),
     ("train", ["synth-ac", "--n-iter", "1", "--data-root", "/nonexistent"]),
+    ("train", ["synth-ac", "--n-iter", "20", "--profile-dir",
+               "/nonexistent/trace", "--data-root", "/nonexistent"]),
     ("export_net", ["/nonexistent/net.npy", "/nonexistent/net.pt2"]),
     ("check_parity", ["/nonexistent/net.npy"])])
 def test_entry_point_refuses_cpu_unless_asked(entry, args):

@@ -19,6 +19,7 @@ from mpnn_tpu.ops.kernels import fused_mcm as j_fused_mcm
 from mpnn_tpu.ops.kernels import fused_mcm_forward, mcm_xla
 from mpnn_tpu_torch.ops import _build, kernels
 from mpnn_tpu_torch.ops import config as tconfig
+from tests.torch_threads import share_cores  # noqa: F401
 
 
 def _stage(c_in=3, c=8, b=8, seed=0):

@@ -13,6 +13,7 @@ from mpnn_tpu.ops import layers as J
 from mpnn_tpu_torch.models.net import Ctx as TCtx
 from mpnn_tpu_torch.ops import config as tconfig
 from mpnn_tpu_torch.ops import layers as T
+from tests.torch_threads import share_cores  # noqa: F401
 
 ATOL = 1e-5
 

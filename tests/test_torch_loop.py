@@ -21,6 +21,7 @@ from mpnn_tpu_torch.train import train_one_net
 from mpnn_tpu_torch.utils.serdes import read_net
 from mpnn_tpu_torch.utils.tree import tree_leaves, tree_map
 from tests.test_torch_sr_cr import build_chain
+from tests.torch_threads import share_cores  # noqa: F401
 
 B = 8
 SCHED = dict(lr=lambda t: 0.02, tau=lambda t: 1.0 / 2 ** (t / 4))

@@ -37,6 +37,7 @@ from mpnn_tpu_torch.parallel.multihost import free_port
 from mpnn_tpu_torch.utils.serdes import read_net
 from tests import torch_mesh_workers as W
 from tests.test_torch_train import LEAF_TOL, _assert_tree_close, _paths
+from tests.torch_threads import share_cores  # noqa: F401
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DESC_TOL = 1e-4

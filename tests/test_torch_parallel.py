@@ -32,6 +32,7 @@ from tests.test_torch_train import (LEAF_TOL, VALUE_TOL, _assert_tree_close,
                                     _dataset, _port_batch_from_jax_draws,
                                     _randomize)
 from tests.test_torch_tree import random_tree_pair
+from tests.torch_threads import share_cores  # noqa: F401
 
 B = 32  # test_torch_train's batch: 16 rows per rank
 N_STEPS = 2

@@ -33,6 +33,7 @@ from mpnn_tpu_torch.utils.serdes import from_numpy_tree, write_net
 
 from .test_reference_oracle import H, W, C, NCLS, _data
 from .test_torch_infer import _nets as _pyramid_nets
+from tests.torch_threads import share_cores  # noqa: F401
 
 NETS = {"actor": (JActorNet, TActorNet), "critic": (JCriticNet, TCriticNet)}
 

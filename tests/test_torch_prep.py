@@ -13,6 +13,7 @@ from mpnn_tpu.data import prep as jprep
 from mpnn_tpu_torch.data import prep as tprep
 
 from .test_prep import _fake_cifar_batches, _fake_mnist_mat
+from tests.torch_threads import share_cores  # noqa: F401
 
 ARCHIVES = ["cifar-10.npz", "cifar-2.npz", "cifar-5.npz", "hybrid.npz",
             "mnist.npz"]

@@ -22,6 +22,7 @@ from mpnn_tpu_torch.utils import serdes as tserdes
 
 from . import tf1_ckpt_gen
 from .test_torch_zoo import zoo_chain
+from tests.torch_threads import share_cores  # noqa: F401
 
 TOL = 1e-4
 

@@ -18,6 +18,7 @@ from mpnn_tpu_torch.models.infer import chain_stages
 from mpnn_tpu_torch.models.infer import make_routed_infer_fn as t_infer
 from mpnn_tpu_torch.ops.layers import MultiscaleConvMax
 from mpnn_tpu_torch.utils.serdes import read_net as t_read_net
+from tests.torch_threads import share_cores  # noqa: F401
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "results", "nets",
                     "hybrid-ac", "0004.npy")

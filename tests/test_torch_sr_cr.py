@@ -26,6 +26,7 @@ from tests.test_torch_train import (
     EPS, K_CPT, LEAF_TOL, SCHED, TAU, VALUE_TOL, _assert_tree_close, _batch,
     _dataset, _jax_loss_and_grads, _port_batch_from_jax_draws,
     _port_loss_and_grads, _randomize)
+from tests.torch_threads import share_cores  # noqa: F401
 
 B = 32
 ARCH = [[8, 8, 8], [8, 8], [8]]

@@ -43,6 +43,7 @@ from tests.test_torch_train import (
     B, EPS, K_CPT, K_L2, LEAF_TOL, TAU, VALUE_TOL, _assert_tree_close,
     _batch, _check_value, _jax_loss_and_grads, _jax_run, _port_loss_and_grads)
 from tests.test_torch_tree import build_tree, random_tree_pair
+from tests.torch_threads import share_cores  # noqa: F401
 
 SCHED = dict(lr=lambda t: 0.02, tau=lambda t: 1.0 / 2 ** (t / 4))
 # The stacked and serial loops after a few steps: fp32 reassociation in the

@@ -25,6 +25,7 @@ from tests.test_torch_adaptive import _registry as _adaptive_registry
 from tests.test_torch_adaptive import _scalars
 from tests.test_torch_cli import _files
 from tests.test_torch_tree_cli import _tiny_registry
+from tests.torch_threads import share_cores  # noqa: F401
 
 DESC_TOL = 1e-4  # per scalar stat, times max(1, |stat|)
 

@@ -32,6 +32,7 @@ from mpnn_tpu_torch.utils.tree import (stack_trees, tree_leaves, tree_map,
 from tests.test_torch_sr_cr import build_chain, random_pair
 from tests.test_torch_train import (TAU, VALUE_TOL, _assert_tree_close,
                                     _dataset)
+from tests.torch_threads import share_cores  # noqa: F401
 
 N_NETS, B = 3, 8
 K_CPTS = [0.0, 2e-6, 1e-5]  # the members' prices

@@ -28,6 +28,7 @@ from mpnn_tpu_torch.utils.serdes import read_net
 from mpnn_tpu_torch.utils.tree import tree_leaves
 from tests.test_torch_cli import _files, _schema
 from tests.test_torch_sr_cr import build_chain
+from tests.torch_threads import share_cores  # noqa: F401
 
 K_CPTS = [0.0, 1e-6, 4e-6]
 

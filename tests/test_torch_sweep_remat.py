@@ -22,6 +22,7 @@ from tests.test_torch_sr_cr import build_chain
 from tests.test_torch_sweep import K_CPTS, N_NETS, N_STEPS, SCHED, B
 from tests.test_torch_sweep_steps import _jax_sweep
 from tests.test_torch_train import LEAF_TOL, VALUE_TOL, _assert_tree_close
+from tests.torch_threads import share_cores  # noqa: F401
 
 POLICIES = ["full", "dots"]
 

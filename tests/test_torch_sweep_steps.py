@@ -24,6 +24,7 @@ from tests.test_torch_sweep import (B, K_CPTS, N_NETS, N_STEPS, SCHED,
                                     _raw_batches)
 from tests.test_torch_train import (LEAF_TOL, VALUE_TOL, _assert_tree_close,
                                     _dataset)
+from tests.torch_threads import share_cores  # noqa: F401
 
 
 def _port_batch_from_jax_draws(rng, t, xb, yb, m_sym, r_shift=4):

@@ -25,6 +25,7 @@ from mpnn_tpu_torch.ops import layers as T
 
 from .test_torch_cli import _files, _schema
 from .test_torch_zoo import W_CLS, modes  # noqa: F401 (fixture)
+from tests.torch_threads import share_cores  # noqa: F401
 
 
 def _tiny_net(L):

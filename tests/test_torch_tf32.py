@@ -18,6 +18,7 @@ import pytest
 from mpnn_tpu_torch import kernel_bench
 from mpnn_tpu_torch.experiments import arch
 from mpnn_tpu_torch.ops import _build
+from tests.torch_threads import share_cores  # noqa: F401
 
 F64_TOL = 1e-5  # chip_smoke.py's gate: fp32 kernel against float64
 

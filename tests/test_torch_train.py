@@ -41,6 +41,7 @@ from mpnn_tpu_torch.ops import config as tconfig
 from mpnn_tpu_torch.ops import layers as T
 from mpnn_tpu_torch.utils.serdes import from_numpy_tree
 from mpnn_tpu_torch.utils.tree import tree_leaves, tree_map
+from tests.torch_threads import share_cores  # noqa: F401
 
 B = 32
 ARCH = [[8, 8, 8], [8, 8], [8]]

@@ -12,6 +12,7 @@ import jax
 
 from mpnn_tpu.utils.serdes import read_net as j_read_net
 from mpnn_tpu_torch.utils.serdes import read_net as t_read_net
+from tests.torch_threads import child_env, share_cores  # noqa: F401
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
@@ -19,7 +20,7 @@ _BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
 
 
 def _run(code):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = child_env(PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", _BLOCK_JAX + code], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr

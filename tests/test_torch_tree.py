@@ -37,6 +37,7 @@ from tests.test_torch_sweep_steps import _port_batch_from_jax_draws
 from tests.test_torch_train import (
     B, EPS, K_CPT, LEAF_TOL, SCHED, TAU, VALUE_TOL, _assert_tree_close,
     _batch, _dataset, _jax_loss_and_grads, _port_loss_and_grads, _randomize)
+from tests.torch_threads import share_cores  # noqa: F401
 
 ARCH = [[8, 8, 8], [8, 8], [8]]
 K_L2 = 1e-4

@@ -35,6 +35,7 @@ from mpnn_tpu_torch.utils.serdes import from_numpy_tree
 from tests.test_torch_cli import _files, _schema
 from tests.test_torch_tree import build_tree
 from tests.test_torch_train import _randomize
+from tests.torch_threads import share_cores  # noqa: F401
 
 B = 48
 

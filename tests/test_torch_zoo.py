@@ -30,6 +30,7 @@ from mpnn_tpu_torch.ops import config as tconfig
 from mpnn_tpu_torch.ops import layers as T
 from mpnn_tpu_torch.utils.serdes import from_numpy_tree
 from mpnn_tpu_torch.utils.tree import tree_leaves
+from tests.torch_threads import share_cores  # noqa: F401
 
 TOL = 1e-5  # max abs error / max(1, max|jax|) of a value or gradient
 LEAF_TOL = 1e-4  # ||port - jax|| / ||jax|| of a leaf after a step
