@@ -81,10 +81,10 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               kernel path's bf16 gradients may be at most 2x as far from
               its fp32 gradients, over the whole tree, as mcm_ref's bf16
               gradients are from mcm_ref's fp32 ones (every distance is
-              printed). train_fp32 and train_bf16 then each take 3 timed
-              windows of 20 steps (img/s, median and every window; the
+              printed). train_fp32 and train_bf16 then each take 2 timed
+              windows of 10 steps (img/s, median and every window; the
               loss finite at each window's end); the kernel's count is set
-              to 0 before each and must read 20 per step after it; then 5
+              to 0 before each and must read 20 per step after it; then 2
               steps under torch.profiler give the device's time,
               operations and idle share per step. bf16 also prints the
               kernel path's first-step loss against the mcm_ref path's
@@ -99,8 +99,8 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               losses per member; the worst member's errors and a float64
               stage's are printed), with
               exactly 20 launches per sweep forward and none in the
-              backward; sweep_train_fp32 and sweep_train_bf16 take 3 timed
-              windows of 20 steps each (aggregate img/s of all nets,
+              backward; sweep_train_fp32 and sweep_train_bf16 take 2 timed
+              windows of 10 steps each (aggregate img/s of all nets,
               median and every window, beside the single-net rate of the
               train phase of the same run), the counts from 0 and 20
               net-axis launches a step; sweep_train_bf16 also holds one
@@ -111,18 +111,20 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               torch.use_deterministic_algorithms, warn_only): per tree
               (params, state, velocity) the leaves that differ and the
               worst member's relative error, and the ops that warn
-              (ROADMAP C1; not a gate); both loops' img/s in 3 windows
-              each, default and deterministic in turns; the cost of
+              (ROADMAP C1; not a gate); both loops' img/s in 2 windows
+              each (10 serial steps, 5 sweep steps), default and
+              deterministic in turns; the cost of
               check_nans (`train --debug-nans`) on their trees.
 7b. trees  -- the 47-stage actor tree (`ac_tree(k_cpt=k_cpts[4])`, fresh
               from seed 0, batch 128): tree_train_fp32_vs_plain holds one
               fp32 step at train_fp32_vs_plain's gates with 96 launches
-              per forward; tree_train_fp32 / tree_train_bf16 take 3
-              windows of 5 steps (img/s beside the chain's of this run; 1
-              profiled step); tree_sweep_train_fp32 holds one step of
-              synth-ac-tree's 8 trees at the sweep gates (96 net-axis
-              launches per sweep forward) and, with tree_sweep_train_bf16,
-              times 3 windows of 2 steps (aggregate img/s).
+              per forward; tree_train_fp32 / tree_train_bf16 take 2
+              windows of 3 steps (img/s beside the chain's of this run; 1
+              profiled step, fp32 only); tree_sweep_train_fp32 holds one
+              step of synth-ac-tree's 8 trees at the sweep gates (96
+              net-axis launches per sweep forward) and, with
+              tree_sweep_train_bf16, times 2 windows of 1 step (aggregate
+              img/s; 1 profiled step, fp32 only).
 7c. stacked tails -- ops.config.stacked_tails (`--stacked-tails`): the
               tree's eight congruent tails as one vmapped template, the
               trees packed as the loops carry them. tree_stacked_vs_serial
@@ -136,7 +138,7 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               tree_sweep_stacked holds one step of the 8 trees (each
               tree's tails a vmap inside the sweep's: 33 net-axis
               launches per sweep forward, the tails 64 wide) at the sweep
-              gates against mcm_ref, then times 3 windows of 2 steps
+              gates against mcm_ref, then times 2 windows of 1 step
               beside the serial sweep of 7b.
 7d. tree serving -- the trained adaptive tree
               (results/nets/hybrid-ac-tree-dynkcpt/net.npy.cz, its
@@ -146,42 +148,58 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               dense and at capacities calibrated on the train split: fp32
               through the kernel against mcm_ref (probs within 1e-4, the
               same exits, ops and forced counts outside router near-ties
-              on the example's path), then bf16 timed (3 windows of 1
+              on the example's path), then bf16 timed (2 windows of 1
               pass over the padded test split, dense and routed in
               turns; the kernel's count from 0), with the bf16 exits that
-              differ from fp32's. tree_desc_vs_jax_files prints, per
-              k_cpt, net_desc of that tree through the kernel (fp32, eval
-              batch 1024) beside the descriptor files its training wrote
-              (accuracy, moc, the largest difference of a scalar stat;
-              not a gate), and, where the fp32 net.npy is in the
-              checkout, net_desc of that beside both.
-7e. serving artifacts, the parity harness, compact archives --
+              differ from fp32's.
+7e. serving artifacts --
               export_chain: the trained flagship traced with torch.export
               (mpnn_tpu_torch.export) at batch 1024 in bf16 at
               serve_bf16's calibrated capacities, saved, loaded and served
               on two synthetic batches against the direct engine (exit_idx,
               ops and forced equal, probs within 1e-5, 20 launches a
               batch, counted from 0 per batch), img/s of the artifact and
-              the engine in turns (3 windows of 20 batches); the same file
-              served by a fresh process that cannot import jax, mpnn_tpu or
-              the port's models, utils and experiments; an fp32 export at
-              batch 64 moved to the CPU against the CPU engine (exits
-              outside router near-ties, probs within 1e-4). export_adaptive:
-              results/nets/hybrid-ac-dynkcpt/net.npy as one dyn_k_cpt
-              artifact (capacities calibrated at price 0) served at the 8
-              prices on the rebuilt hybrid.npz's first test batch against
-              the engine, 20 launches a batch, mean ops at the dearest
-              price at most at price 0. export_tree: the trained tree the
-              same way, 96 launches a batch. parity: check_parity and
-              check_grad_parity of the flagship on the first 8 test images,
-              fp32 on the kernel path, ok, 20 launches a forward; under
-              bf16 check_parity must fail; `python -m
-              mpnn_tpu_torch.check_parity --grads` as a process: exit 0,
-              PARITY OK. compact: the tree's archive read, rewritten by
-              write_compact and read back bit for bit; the net decoded from
-              it (params bit for bit) serves a batch with the original's
-              exits (probs within 1e-5). Each with its seconds, file bytes
-              and load seconds.
+              the engine in turns (2 windows of 10 batches); an fp32 export
+              at batch 64 moved to the CPU against the CPU engine (exits
+              outside router near-ties, probs within 1e-4).
+              export_adaptive: results/nets/hybrid-ac-dynkcpt/net.npy as
+              one dyn_k_cpt artifact (capacities calibrated at price 0)
+              served at the 8 prices on the rebuilt hybrid.npz's first
+              test batch against the engine, 20 launches a batch, mean ops
+              at the dearest price at most at price 0. Each with its
+              seconds, file bytes and load seconds.
+7f. phases that time no rate, side by side -- seven things run in
+              processes of their own: the dry run (22), export_chain's
+              artifact served by a fresh process, check_parity's CLI,
+              export_tree and train_cli (8) (each `python3 chip_smoke.py
+              --phase-process NAME DIR`), the adaptive trainer's CLI (9)
+              and the mesh CLIs (18, 19; checked after dp_nccl);
+              meanwhile this process runs tree_desc_vs_jax_files, compact
+              and phases 10, 11, 13-15. Their seconds are not one phase's
+              alone (the img/s of train_cli's runs included). Then each
+              process is waited for and checked: parity after zoo_train,
+              then train_cli, export_tree, export_process, dryrun and
+              adaptive_cli after prep_files. export_tree: the trained tree exported as
+              export_adaptive's chain is, 96 launches a batch (counted in
+              its process), with its export and load seconds. tree_desc_vs_jax_files
+              prints, at the two ends of the price range (TREE_DESC_K),
+              net_desc of the trained tree through the kernel (fp32, eval
+              batch 1024) beside the descriptor files its training wrote
+              (accuracy, moc, the largest difference of a scalar stat; not
+              a gate), and, where the fp32 net.npy is in the checkout,
+              net_desc of that beside both. compact: the tree's archive
+              read, rewritten by write_compact and read back bit for bit;
+              the net decoded from it (params bit for bit) serves a batch
+              with the original's exits (probs within 1e-5). parity:
+              check_parity and check_grad_parity of the flagship on the
+              first 8 test images, fp32 on the kernel path, ok, 20
+              launches a forward; under bf16 check_parity must fail;
+              `python -m mpnn_tpu_torch.check_parity --grads` as a
+              process: exit 0, PARITY OK. export_process: the artifact,
+              served by a process that cannot import jax, mpnn_tpu or the
+              port's models, utils and experiments, gives the direct
+              engine's outputs with 20 launches. Phase 12 runs before
+              these, after 7e.
 8. train_cli -- the training CLI's path (`train.train_experiment`, as
               `python -m mpnn_tpu_torch.train` runs it) in a temporary
               directory, fp32, batch 128, t_log 20, on the small synthetic
@@ -217,9 +235,10 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               its checkpoint makes one step under debug_nans raise
               FloatingPointError naming step 60.
 9. adaptive_cli -- `python -m mpnn_tpu_torch.train_adaptive` in processes
-              of its own (ADAPTIVE_RUNS: synth-ac-tree-dynkcpt to 10 with
-              t_log 5 and --stats-log, resumed to 15, and
-              synth-cr-dynkcpt to 10; and the first run again with
+              of its own, in phase 7f (ADAPTIVE_RUNS:
+              synth-ac-tree-dynkcpt to 5 with t_log 5 and --stats-log,
+              resumed to 10 in a copy of its output root, and
+              synth-cr-dynkcpt to 5; and the first run again with
               --stacked-tails into another output root; the runs from
               scratch at once, then the resume): the files (the
               stacked run's file set the serial run's), net.npy read back
@@ -277,7 +296,7 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               (gloo: NCCL refuses two ranks on one GPU), 64 rows each:
               one step against the single-process kernel step at the
               step gates, the ranks' params equal after it, 20 launches a
-              forward on each rank; then 2 windows of 10 steps: img/s over
+              forward on each rank; then 2 windows of 5 steps: img/s over
               the global batch, all-reduces a step and their host time,
               each rank's launches counted from 0 in its process. The
               kernel's eight stages at batch 64 against mcm_ref and
@@ -287,9 +306,9 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               at the step gates, and which parts are equal bit for bit.
 18. sweep_mesh -- `python -m mpnn_tpu_torch.train synth-ac --vmap-sweep
               --mesh 2x1` (the CLI starts 2 ranks, 4 nets each; started
-              together with mesh_cli's run) against the same meshless
-              sweep in this process, one step on the small archive: every member's files, params at the step
-              gates, descriptors within 1e-4 x max(1, |stat|), each log
+              together with mesh_cli's run, in 7f) against the same
+              meshless sweep in this process, one step on the small
+              archive: every member's files, params at the step gates, descriptors within 1e-4 x max(1, |stat|), each log
               written once, each rank's net-axis launches (its closing
               JSON line) = 20 x (steps + eval batches); the net axis at 4
               nets x 128 against mcm_ref.
@@ -300,6 +319,34 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
 20. sweep_remat -- one step of the 8-net sweep under remat "full" and
               "dots" against none at the step gates: launches (40 / 20 /
               20 a loss and gradient) and peak device memory.
+21. tp_train -- the flagship at k_cpts[4], global batch 128, fp32, over
+              a 1x2 and a 2x2 ('data', 'model') mesh of ranks sharing the
+              card over gloo (one start of 4 ranks; ranks 2 and 3 wait
+              while 0 and 1 run the 1x2 mesh), params and velocity
+              sharded over 'model' by shard_params(model_parallel=True,
+              min_chan=64) (the 8 weight leaves of stages 4-7): one step
+              against the single-process kernel step at the step gates,
+              the ranks' whole params equal after it, 20 launches a
+              forward on each rank, 6 of them at sharded shapes (every
+              launch's shape as expected); 2 windows of 4 steps: img/s,
+              the collectives a step over 'model' and over 'data' and
+              their host time, each rank's launches counted from 0 in its
+              process. The sharded
+              launch shapes at a rank's batch (128, 64) against mcm_ref
+              (and the block of the whole stage) and float64, timed
+              against mcm_ref and the cuDNN sequence, with their bound.
+              On 1x2 also the actor tree with stacked tails, sharded the
+              same way: one step against the single-process stacked
+              step at the step gates, the ranks' whole params equal, 33
+              launches a forward (9 on the net axis, some of them from a
+              per-net gathered prev); and the sharded shapes on the net
+              axis (vmap of fused_mcm_scale over 8 nets at batch 128)
+              against mcm_ref and float64, timed.
+22. dryrun -- `python -m mpnn_tpu_torch.dryrun 4`: phase 1 on the 2x2
+              dp x tp mesh, phase 2 on the sweep mesh, on the card; its
+              4 ranks run beside the phases of 7f, which time nothing,
+              and are waited for before any timed phase; killed, with
+              the other processes of 7f, if a check fails first.
 
 Then one {"kernels": [...]} line, the kernel (bf16), its fp32 branch
 (launches on the fp32 training main path) and its net axis (with the
@@ -309,6 +356,7 @@ tree paths' in `tree_launches` and `tree_sweep_launches`; the stacked
 tails' in `tree_stacked_launches` and `tree_sweep_stacked_launches`, the
 tail stages' times in `tail_stages`; the paths of phases 12-15 in
 `tf1_launches`; each rank's on the mesh paths in `mesh_launches`,
+`tp_launches` (the sharded scales' times in `tp_scales`),
 `sweep_mesh_launches_per_rank` and `sweep_remat_launches`), and last the
 device record. Any failed phase, rank or collective raises and the script
 exits non-zero; it also exits non-zero, with no result, where CUDA is
@@ -316,6 +364,7 @@ absent or the port's package is not beside it."""
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import sys
@@ -345,7 +394,7 @@ BATCH = 1024  # the serving batch, also the kernel check's batch
 ROUTED_BATCH = 32  # rows of the routed engine's deep buffers
 TRAIN_BATCH = 128  # the per-net training batch of bench.py
 GRAD_BATCH = 64
-N_TRAIN_STEPS = 20  # steps per timed training window
+N_TRAIN_STEPS = 10  # steps per timed training window
 # One fp32 train step, kernel path against mcm_ref path. The loss and the
 # BatchNorm statistics are continuous in the forward's rounding and are
 # held per leaf. The gradients (and the parameters they move) are not: a
@@ -366,11 +415,10 @@ CLI_RUNS = [("synth-ac", 4, 40, False), ("synth-ac", 4, 60, True),
 DESC_TOL = 1e-4  # kernel vs mcm_ref net_desc, per scalar stat
 N_SERVE = 20  # batches per timed serving window
 N_WINDOWS = 5  # timed serving windows per capacity
-N_TRAIN_WINDOWS = 3  # timed windows of N_TRAIN_STEPS single-net steps
+N_TRAIN_WINDOWS = 2  # timed windows of N_TRAIN_STEPS single-net steps
 N_NETS = 8  # nets of the flagship sweep (experiments.k_cpts)
-# Timed windows of N_TRAIN_STEPS sweep steps: 3, as N_TREE_WINDOWS, to keep
-# the script inside its time limit on slower hosts.
-N_SWEEP_WINDOWS = 3
+# Timed windows of N_TRAIN_STEPS sweep steps.
+N_SWEEP_WINDOWS = 2
 # (experiment, n_iter, resume) of the train_cli phase's --vmap-sweep runs,
 # and the synth-ac member whose final descriptor is held against mcm_ref.
 SWEEP_CLI_RUNS = [("synth-ac", 40, False), ("synth-ac", 60, True),
@@ -393,14 +441,16 @@ STACKED_PER_FORWARD = {"tree": (33, 9)}
 TAIL_FIRST_STAGE = 3
 TAIL_NETS = {8: ("fp32", "bf16"), 64: ("fp32",)}
 # Timed windows x steps of the training phases, per architecture: the tree's
-# host-bound step is ~5x the chain's.
-TRAIN_WINDOWS = {"chain": (N_TRAIN_WINDOWS, N_TRAIN_STEPS), "tree": (3, 5)}
-SWEEP_WINDOWS = {"chain": (N_SWEEP_WINDOWS, N_TRAIN_STEPS), "tree": (3, 2)}
-# Steps traced by torch.profiler after the windows: reading a trace back
-# takes ~0.1 ms an event, and a tree step has ~10,000-28,000 device
-# operations (stacked, serial, the sweep), so the seven tree phases that
-# profile trace one step each.
-PROFILE_STEPS = {"chain": 5, "tree": 1}
+# host-bound step is ~5x the chain's. The windows are as short as the
+# script's time limit needs, on a host slower than the one that measured it.
+TRAIN_WINDOWS = {"chain": (N_TRAIN_WINDOWS, N_TRAIN_STEPS), "tree": (2, 3)}
+SWEEP_WINDOWS = {"chain": (N_SWEEP_WINDOWS, N_TRAIN_STEPS), "tree": (2, 1)}
+# Steps traced by torch.profiler after the windows. Reading a trace back
+# (`train_bench.step_split`) took 5-17 s a profiled tree step and ~1.7 s a
+# chain step on the card, so the tree phases trace one step each, and only
+# in fp32 (PROFILED_PRECISIONS); the chain traces two in both precisions.
+PROFILE_STEPS = {"chain": 2, "tree": 1}
+PROFILED_PRECISIONS = {"chain": ("fp32", "bf16"), "tree": ("fp32",)}
 # bf16 training against fp32 (one step, gradients over the whole tree):
 # the kernel path's distance may be at most this multiple of mcm_ref's.
 BF16_VS_FP32_FACTOR = 2.0
@@ -972,8 +1022,11 @@ TREE_DIR = os.path.join(HERE, "results", "nets", "hybrid-ac-tree-dynkcpt")
 TREE_CHECKPOINT = os.path.join(TREE_DIR, "net.npy.cz")
 TREE_FP32 = os.path.join(TREE_DIR, "net.npy")
 N_TREE_PASSES = 1  # passes over the test split per timed serving window
-N_TREE_WINDOWS = 3  # timed serving windows per capacity and k_cpt
+N_TREE_WINDOWS = 2  # timed serving windows per capacity and k_cpt
 EVAL_BATCH = 1024  # the batch of the trained tree's full-split evaluation
+# The k_cpts (indices) of tree_desc_vs_jax_files, the ends of the price
+# range: one evaluation of both splits takes ~8 s on the card.
+TREE_DESC_K = (0, 7)
 
 
 def tree_serve_phase(device):
@@ -1081,7 +1134,8 @@ def tree_serve_phase(device):
 
 
 def tree_desc_phase(device, tree):
-    """net_desc of the trained tree at every k_cpt through the kernel, fp32,
+    """net_desc of the trained tree at the k_cpts of TREE_DESC_K (indices
+    into experiments.k_cpts) through the kernel, fp32,
     on the rebuilt hybrid.npz, at the τ of its last training step, beside
     the committed descriptor files of its training: accuracy, moc and the
     largest difference of any scalar stat (printed, not gated). Where the
@@ -1116,7 +1170,8 @@ def tree_desc_phase(device, tree):
 
     rows = []
     t = time.perf_counter()
-    for i, k_cpt in enumerate(k_cpts):
+    for i in TREE_DESC_K:
+        k_cpt = k_cpts[i]
         desc = desc_at(k_cpt, params, state)
         jax_desc = np.load(os.path.join(TREE_DIR, "%.4i-stats.npy" % i),
                            allow_pickle=True)[()]
@@ -1365,9 +1420,9 @@ def tree_stacked_vs_serial_phase(device):
 def train_phase(device, precision, arch="chain", stacked=False):
     """The training main path in one precision, of the flagship actor chain
     or (arch="tree") the actor tree: a warm-up step and timed windows
-    (TRAIN_WINDOWS), the kernel's count from 0; then PROFILE_STEPS steps
-    under torch.profiler for the device's time, operations and idle share
-    per step. With stacked, under stacked_tails, the trees packed once
+    (TRAIN_WINDOWS), the kernel's count from 0; then, in
+    PROFILED_PRECISIONS, PROFILE_STEPS steps under torch.profiler for the
+    device's time, operations and idle share per step. With stacked, under stacked_tails, the trees packed once
     before the warm-up as the training loop carries them."""
     from mpnn_tpu_torch import train_bench
     from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
@@ -1414,8 +1469,9 @@ def train_phase(device, precision, arch="chain", stacked=False):
                 t += 1
                 params, state, vel, _ = step(params, state, vel, t, gen,
                                              *data)
-        profile = profile_steps(more, (params, state, vel, t),
-                                PROFILE_STEPS[arch])
+        profile = (profile_steps(more, (params, state, vel, t),
+                                 PROFILE_STEPS[arch])
+                   if precision in PROFILED_PRECISIONS[arch] else None)
     finally:
         config.set_compute_dtype(None)
         config.set_stacked_tails(False)
@@ -1450,6 +1506,7 @@ def profile_steps(run, args, n_steps):
     """`run(*args)` (n_steps steps) under torch.profiler: the device time
     per step, its operations per step and its idle share
     (train_bench.step_split), without the list of operations."""
+    import gc
     from mpnn_tpu_torch.train_bench import step_split
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1459,7 +1516,13 @@ def profile_steps(run, args, n_steps):
         run(*args)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    split = step_split(prof, n_steps)
+    # Reading the trace back builds one object an event; the collector's
+    # passes over the heap meanwhile cost ~a quarter of it.
+    gc.disable()
+    try:
+        split = step_split(prof, n_steps)
+    finally:
+        gc.enable()
     split.pop("top_device_ops")
     return dict(split, steps=n_steps,
                 profiled_ms_per_step=host_s * 1e3 / n_steps)
@@ -1626,7 +1689,7 @@ def sweep_train_phase(device, precision, single, arch="chain",
             losses.append(cs[-1].tolist())
         launches, net_launches = fused_mcm.launches, fused_mcm.net_launches
         profile = None
-        if arch == "tree":
+        if arch == "tree" and precision in PROFILED_PRECISIONS[arch]:
             n = PROFILE_STEPS[arch]
             profile = profile_steps(
                 lambda *a: loop(*a, 0, *data, n, k_cpts),
@@ -2148,11 +2211,12 @@ def _gate0(device, d, out_root, prof_root, prof_dir, profiled):
 
 # (experiment, n_iter, t_log, stats_log, resume) of the adaptive_cli phase,
 # each one `python -m mpnn_tpu_torch.train_adaptive` process.
-ADAPTIVE_RUNS = [("synth-ac-tree-dynkcpt", 10, 5, True, False),
-                 ("synth-ac-tree-dynkcpt", 15, 5, True, True),
-                 ("synth-cr-dynkcpt", 10, None, False, False)]
+ADAPTIVE_RUNS = [("synth-ac-tree-dynkcpt", 5, 5, True, False),
+                 ("synth-ac-tree-dynkcpt", 10, 5, True, True),
+                 ("synth-cr-dynkcpt", 5, None, False, False)]
 # The first run again with --stacked-tails, into an output root of its own.
-ADAPTIVE_STACKED_RUN = ("synth-ac-tree-dynkcpt", 10, 5, True, False)
+ADAPTIVE_STACKED_RUN = ("synth-ac-tree-dynkcpt", 5, 5, True, False)
+ADAPTIVE_TIMEOUT_S = 600  # a wave of adaptive_cli's runs, start to end
 DEFAULT_T_LOG = 2500
 
 
@@ -2170,77 +2234,74 @@ def _records_equal(a, b):
     return a == b
 
 
-def adaptive_cli_phase(device):
-    """The adaptive trainer's CLI, `python -m mpnn_tpu_torch.train_adaptive`,
-    as separate processes on the small synthetic archive, fp32, batch 128
-    (ADAPTIVE_RUNS, and ADAPTIVE_STACKED_RUN with --stacked-tails into
-    another output root: the first run's file set, and its launches with
-    33 a forward, 9 on the net axis). The runs that do not resume share
-    the card at once, then the resume runs, so their rates are not one
-    process's alone. Gates: the files; net.npy read
-    back by the port and
-    written again equals the file bit for bit, with t = n_iter; the resume
-    starts where the first run ended; each process's launches (its last
-    line) equal per_forward x (steps + evaluations x eval batches), the
-    evaluations one per k_cpt at every stats boundary and at the end; the
-    final tree's descriptor files, written through the kernel, equal
-    net_desc of its net.npy through mcm_ref within DESC_TOL x max(1,
-    |stat|) at every k_cpt."""
+def _adaptive_jobs(d):
+    """[(run spec, stacked, output root)] of adaptive_cli, in check order:
+    the serial runs from scratch, the resume, the stacked run. A resume
+    continues a copy of its run's output root, so the run's own files
+    stay as it left them for the checks."""
+    roots = {False: os.path.join(d, "nets"), True: os.path.join(d,
+                                                                "nets-stacked")}
+    return ([(r, False, os.path.join(d, "nets-resumed") if r[4]
+              else roots[False]) for r in ADAPTIVE_RUNS]
+            + [(ADAPTIVE_STACKED_RUN, True, roots[True])])
+
+
+def _adaptive_command(d, spec, stacked, out_root):
+    expt, n_iter, t_log, stats_log, resume = spec
+    cmd = [sys.executable, "-m", "mpnn_tpu_torch.train_adaptive", expt,
+           "--n-iter", str(n_iter), "--batch-size", str(TRAIN_BATCH),
+           "--data-root", d, "--out-root", out_root]
+    cmd += ["--t-log", str(t_log)] if t_log else []
+    cmd += ["--stats-log"] if stats_log else []
+    cmd += ["--resume"] if resume else []
+    return cmd + (["--stacked-tails"] if stacked else [])
+
+
+def start_adaptive_cli(d):
+    """adaptive_cli's processes, on a thread of their own, in directory d
+    (its data written here first): the runs that start from nothing at
+    once, then each resume in a copy of its run's output root. Returns
+    (thread, done, stop): `done[j]` is job j's (returncode, stdout,
+    stderr, wall seconds), or "error" the thread's exception; setting
+    `stop` kills what runs and ends the thread. `adaptive_cli_phase`
+    checks them after the thread ends."""
+    import shutil
     import subprocess
-    import tempfile
-    from mpnn_tpu_torch.data.dataset import Dataset
+    import threading
     from mpnn_tpu_torch.data.prep import save_archive, synthetic_archive
-    from mpnn_tpu_torch.experiments import (k_cpts,
-                                            make_adaptive_experiments)
-    from mpnn_tpu_torch.ops import config, kernels
-    from mpnn_tpu_torch.utils.desc import net_desc
-    from mpnn_tpu_torch.utils.serdes import encode_net, read_net
+    save_archive(os.path.join(d, "data", "synth.npz"),
+                 synthetic_archive("synth.npz", small=True))
+    jobs = _adaptive_jobs(d)
+    done, stop = {}, threading.Event()
 
-    registry = make_adaptive_experiments()
-    config.set_compute_dtype(None)
-    records, launches, reached = [], 0, {}
-    with tempfile.TemporaryDirectory() as d:
-        save_archive(os.path.join(d, "data", "synth.npz"),
-                     synthetic_archive("synth.npz", small=True))
-        ds = Dataset(os.path.join(d, "data", "synth.npz"), device=device)
-        eval_batches = sum(-(-len(x) // TRAIN_BATCH)
-                           for x in (ds.x0_tr, ds.x0_ts))
-        roots = {False: os.path.join(d, "nets"),
-                 True: os.path.join(d, "nets-stacked")}
-        file_sets = {}
-        jobs = [(r, False) for r in ADAPTIVE_RUNS] + [
-            (ADAPTIVE_STACKED_RUN, True)]
-
-        def command(expt, n_iter, t_log, stats_log, resume, stacked):
-            cmd = [sys.executable, "-m", "mpnn_tpu_torch.train_adaptive",
-                   expt, "--n-iter", str(n_iter), "--batch-size",
-                   str(TRAIN_BATCH), "--data-root", d, "--out-root",
-                   roots[stacked]]
-            cmd += ["--t-log", str(t_log)] if t_log else []
-            cmd += ["--stats-log"] if stats_log else []
-            cmd += ["--resume"] if resume else []
-            return cmd + (["--stacked-tails"] if stacked else [])
-
-        # The runs that start from nothing share the card at once, then
-        # the resumes run; the checks below take the runs in order.
-        done = {}
+    def waves():
         for wave in (False, True):
+            if any(r[0] for r in done.values()):
+                return  # a run failed: adaptive_cli_phase reports it
             started = {}
-            for j, (spec, stacked) in enumerate(jobs):
+            for j, (spec, stacked, root) in enumerate(jobs):
                 if spec[4] != wave:
                     continue
+                if wave:  # the resume continues a copy of its run's root
+                    src = next(r for s_, st, r in jobs
+                               if not s_[4] and not st and s_[0] == spec[0])
+                    shutil.copytree(os.path.join(src, spec[0]),
+                                    os.path.join(root, spec[0]))
                 logs = [open(os.path.join(d, "run%d.%s" % (j, x)), "w+")
                         for x in ("out", "err")]
                 started[j] = (subprocess.Popen(
-                    command(*spec, stacked), cwd=HERE, stdout=logs[0],
-                    stderr=logs[1], text=True), logs, time.perf_counter())
-            t_end = time.perf_counter() + 600
+                    _adaptive_command(d, spec, stacked, root), cwd=HERE,
+                    stdout=logs[0], stderr=logs[1], text=True),
+                    logs, time.perf_counter())
+            t_end = time.perf_counter() + ADAPTIVE_TIMEOUT_S
             try:
                 while started:
+                    if stop.is_set() or time.perf_counter() > t_end:
+                        raise RuntimeError(
+                            "adaptive_cli: stopped, or a wave took over "
+                            "%d s" % ADAPTIVE_TIMEOUT_S)
                     for j, (proc, logs, t) in list(started.items()):
                         if proc.poll() is None:
-                            check(time.perf_counter() < t_end,
-                                  "adaptive_cli: a run took over 600 s")
                             continue
                         wall = time.perf_counter() - t
                         texts = []
@@ -2257,119 +2318,164 @@ def adaptive_cli_phase(device):
                     proc.wait()
                     for f in logs:
                         f.close()
-            # Each run is checked before the resumes change its files.
-            for j, ((expt, n_iter, t_log, stats_log, resume), stacked) \
-                    in enumerate(jobs):
-                if resume != wave:
-                    continue
-                out_root = roots[stacked]
-                cmd = command(expt, n_iter, t_log, stats_log, resume, stacked)
-                returncode, stdout, stderr, wall = done[j]
-                proc = subprocess.CompletedProcess(cmd, returncode, stdout,
-                                                   stderr)
-                label = " ".join(cmd[3:4] + cmd[4:6] + cmd[12:])
-                check(proc.returncode == 0, "adaptive_cli %s: exit %d: %s"
-                      % (label, proc.returncode, proc.stderr[-2000:]))
-                tm = json.loads(proc.stdout.strip().splitlines()[-1])
-                t_start = reached.get(expt, 0) if resume else 0
-                reached[expt] = n_iter
-                chunk = min(n_iter, t_log or DEFAULT_T_LOG)
-                boundaries = [t for t in range(t_start + 1, n_iter)
-                              if t % chunk == 0] if stats_log else []
-                evals = len(k_cpts) * (len(boundaries) + 1)
-                net = registry[expt].net(ds.x0_shape, ds.y_shape)
-                config.set_stacked_tails(stacked)
-                per_fwd = mcm_launches_per_forward(net)
-                per_net = mcm_launches_per_forward(net, net_axis_only=True)
-                config.set_stacked_tails(False)
-                forwards = n_iter - t_start + evals * eval_batches
-                expect = per_fwd * forwards
-                check(tm["t_start"] == t_start and tm["evals"] == evals
-                      and tm["fused_mcm_launches"] == expect
-                      and tm["fused_mcm_net_launches"] == per_net * forwards
-                      and tm["stacked_tails"] == stacked,
-                      "adaptive_cli %s: started at %d with %d evaluations and "
-                      "%d launches (%d net-axis), expected %d, %d and %d = %d "
-                      "(%d) x (%d steps + %d x %d batches)" % (
-                          label, tm["t_start"], tm["evals"],
-                          tm["fused_mcm_launches"],
-                          tm["fused_mcm_net_launches"],
-                          t_start, evals, expect, per_fwd, per_net,
-                          n_iter - t_start, evals, eval_batches))
-                root = os.path.join(out_root, expt)
-                if not resume and (expt, n_iter) == ADAPTIVE_STACKED_RUN[:2]:
-                    file_sets[stacked] = sorted(
-                        os.path.relpath(os.path.join(a, f), root)
-                        for a, _, fs in os.walk(root) for f in fs)
-                ckpt = os.path.join(root, "net.npy")
-                if resume:
-                    check("[resuming %s at t=%d]" % (ckpt, t_start)
-                          in proc.stdout, "adaptive_cli %s: no resume at t=%d"
-                          % (label, t_start))
-                snaps = (list(range(chunk, n_iter + 1, chunk))
-                         if stats_log else [])
-                names = (["MANIFEST.json", "net.npy"]
-                         + ["%.4i-stats.npy" % i for i in range(len(k_cpts))]
-                         + ["%.4i-stats/%.8i.npy" % (i, t_)
-                            for i in range(len(k_cpts)) for t_ in snaps])
-                missing = [x for x in names
-                           if not os.path.exists(os.path.join(root, x))]
-                check(not missing, "adaptive_cli %s: missing %s"
-                      % (label, missing))
-                raw = np.load(ckpt, allow_pickle=True)[()]
-                net_r, params, state, extra = read_net(ckpt, device)
-                again = encode_net(net_r, params, state, extra)
-                check(_records_equal(again, raw) and extra["t"] == n_iter,
-                      "adaptive_cli %s: net.npy does not read back bit for "
-                      "bit (t=%s)" % (label, extra["t"]))
-                launches += tm["fused_mcm_launches"]
-                imgs = tm["steps"] * tm["batch_size"]
-                records.append({
-                    "run": label, "steps": tm["steps"], "evals": evals,
-                    "eval_batches": eval_batches,
-                    "launches": tm["fused_mcm_launches"],
-                    "net_launches": tm["fused_mcm_net_launches"],
-                    "launches_per_forward": per_fwd, "wall_s": wall,
-                    "train_s": tm["train_s"], "eval_s": tm["eval_s"],
-                    "write_s": tm["write_s"], "total_s": tm["total_s"],
-                    "eval_s_per_eval": tm["eval_s"] / evals,
-                    "train_img_s": imgs / tm["train_s"],
-                    "total_img_s": imgs / tm["total_s"]})
 
-        check(file_sets[True] == file_sets[False], "adaptive_cli: "
-              "--stacked-tails wrote %s, the serial run %s"
-              % (file_sets[True], file_sets[False]))
+    def run():
+        try:
+            waves()
+        except BaseException as e:  # noqa: BLE001 -- re-raised on the check
+            done["error"] = e
 
-        def desc_vs_plain(root, expt):
-            """The tree's final descriptor files (written through the
-            kernel) against net_desc of its net.npy through mcm_ref,
-            serially: the largest difference and where."""
-            tau_fn = registry[expt].tau
-            net, params, state, extra = read_net(
-                os.path.join(root, expt, "net.npy"), device)
-            worst, worst_at = 0.0, None
-            with mock.patch.object(kernels, "fused_mcm", _plain_stage):
-                for i, k_cpt in enumerate(k_cpts):
-                    plain = net_desc(net, ds, params, state,
-                                     batch_size=TRAIN_BATCH,
-                                     tau=tau_fn(extra["t"] - 1), k_cpt=k_cpt)
-                    written = np.load(os.path.join(root, expt,
-                                                   "%.4i-stats.npy" % i),
-                                      allow_pickle=True)[()]
-                    a, b = _scalar_stats(written), _scalar_stats(plain)
-                    check([p for p, _ in a] == [p for p, _ in b],
-                          "adaptive_cli: descriptor schemas differ")
-                    for (p, x), (_, y) in zip(a, b):
-                        e = abs(x - y) / max(1.0, abs(y))
-                        if e >= worst:
-                            worst, worst_at = e, "k_cpt %d %s" % (i, p)
-            check(worst <= DESC_TOL, "adaptive_cli %s: the descriptor files "
-                  "and net_desc through mcm_ref differ by %g at %s"
-                  % (root, worst, worst_at))
-            return {"max_err": worst, "at": worst_at, "tolerance": DESC_TOL}
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, done, stop
 
-        desc = desc_vs_plain(roots[False], ADAPTIVE_RUNS[1][0])
-        desc_stacked = desc_vs_plain(roots[True], ADAPTIVE_STACKED_RUN[0])
+
+def adaptive_cli_phase(device, d, started):
+    """The adaptive trainer's CLI, `python -m mpnn_tpu_torch.train_adaptive`,
+    as separate processes on the small synthetic archive, fp32, batch 128
+    (ADAPTIVE_RUNS, and ADAPTIVE_STACKED_RUN with --stacked-tails into
+    another output root: the first run's file set, and its launches with
+    33 a forward, 9 on the net axis), started by `start_adaptive_cli` in
+    d. The runs that do not resume share the card at once, and with the
+    phases beside them, then the resume runs, so their rates are not one
+    process's alone. Gates: each exits 0; the files; net.npy read back
+    by the port and written again equals the file bit for bit, with t =
+    n_iter; the resume starts where the first run ended; each process's
+    launches (its last line) equal per_forward x (steps + evaluations x
+    eval batches), the
+    evaluations one per k_cpt at every stats boundary and at the end; the
+    final tree's descriptor files, written through the kernel, equal
+    net_desc of its net.npy through mcm_ref within DESC_TOL x max(1,
+    |stat|) at every k_cpt."""
+    from mpnn_tpu_torch.data.dataset import Dataset
+    from mpnn_tpu_torch.experiments import (k_cpts,
+                                            make_adaptive_experiments)
+    from mpnn_tpu_torch.ops import config, kernels
+    from mpnn_tpu_torch.utils.desc import net_desc
+    from mpnn_tpu_torch.utils.serdes import encode_net, read_net
+
+    thread, done, _ = started
+    thread.join(2 * ADAPTIVE_TIMEOUT_S)
+    check(not thread.is_alive(), "adaptive_cli: the runs did not end")
+    if "error" in done:
+        raise done["error"]
+    jobs = _adaptive_jobs(d)
+    for j, (rc, _, stderr, _) in done.items():
+        check(rc == 0, "adaptive_cli %s: exit %d: %s" % (" ".join(
+            _adaptive_command(d, *jobs[j])[3:]), rc, stderr[-2000:]))
+    registry = make_adaptive_experiments()
+    config.set_compute_dtype(None)
+    records, launches, reached = [], 0, {}
+    ds = Dataset(os.path.join(d, "data", "synth.npz"), device=device)
+    eval_batches = sum(-(-len(x) // TRAIN_BATCH)
+                       for x in (ds.x0_tr, ds.x0_ts))
+    file_sets, final = {}, {}
+    for j, ((expt, n_iter, t_log, stats_log, resume), stacked,
+            out_root) in enumerate(jobs):
+        cmd = _adaptive_command(d, jobs[j][0], stacked, out_root)
+        _, stdout, _, wall = done[j]
+        label = " ".join(cmd[3:4] + cmd[4:6] + cmd[12:])
+        tm = json.loads(stdout.strip().splitlines()[-1])
+        t_start = reached.get(expt, 0) if resume else 0
+        reached[expt] = n_iter
+        chunk = min(n_iter, t_log or DEFAULT_T_LOG)
+        boundaries = [t for t in range(t_start + 1, n_iter)
+                      if t % chunk == 0] if stats_log else []
+        evals = len(k_cpts) * (len(boundaries) + 1)
+        net = registry[expt].net(ds.x0_shape, ds.y_shape)
+        config.set_stacked_tails(stacked)
+        per_fwd = mcm_launches_per_forward(net)
+        per_net = mcm_launches_per_forward(net, net_axis_only=True)
+        config.set_stacked_tails(False)
+        forwards = n_iter - t_start + evals * eval_batches
+        expect = per_fwd * forwards
+        check(tm["t_start"] == t_start and tm["evals"] == evals
+              and tm["fused_mcm_launches"] == expect
+              and tm["fused_mcm_net_launches"] == per_net * forwards
+              and tm["stacked_tails"] == stacked,
+              "adaptive_cli %s: started at %d with %d evaluations and "
+              "%d launches (%d net-axis), expected %d, %d and %d = %d "
+              "(%d) x (%d steps + %d x %d batches)" % (
+                  label, tm["t_start"], tm["evals"],
+                  tm["fused_mcm_launches"], tm["fused_mcm_net_launches"],
+                  t_start, evals, expect, per_fwd, per_net,
+                  n_iter - t_start, evals, eval_batches))
+        root = os.path.join(out_root, expt)
+        if not resume and (expt, n_iter) == ADAPTIVE_STACKED_RUN[:2]:
+            file_sets[stacked] = sorted(
+                os.path.relpath(os.path.join(a, f), root)
+                for a, _, fs in os.walk(root) for f in fs)
+        final[expt, stacked] = out_root
+        ckpt = os.path.join(root, "net.npy")
+        if resume:
+            check("[resuming %s at t=%d]" % (ckpt, t_start) in stdout,
+                  "adaptive_cli %s: no resume at t=%d" % (label, t_start))
+        snaps = list(range(chunk, n_iter + 1, chunk)) if stats_log else []
+        names = (["MANIFEST.json", "net.npy"]
+                 + ["%.4i-stats.npy" % i for i in range(len(k_cpts))]
+                 + ["%.4i-stats/%.8i.npy" % (i, t_)
+                    for i in range(len(k_cpts)) for t_ in snaps])
+        missing = [x for x in names
+                   if not os.path.exists(os.path.join(root, x))]
+        check(not missing, "adaptive_cli %s: missing %s" % (label, missing))
+        raw = np.load(ckpt, allow_pickle=True)[()]
+        net_r, params, state, extra = read_net(ckpt, device)
+        again = encode_net(net_r, params, state, extra)
+        check(_records_equal(again, raw) and extra["t"] == n_iter,
+              "adaptive_cli %s: net.npy does not read back bit for bit "
+              "(t=%s)" % (label, extra["t"]))
+        launches += tm["fused_mcm_launches"]
+        imgs = tm["steps"] * tm["batch_size"]
+        records.append({
+            "run": label, "steps": tm["steps"], "evals": evals,
+            "eval_batches": eval_batches,
+            "launches": tm["fused_mcm_launches"],
+            "net_launches": tm["fused_mcm_net_launches"],
+            "launches_per_forward": per_fwd, "wall_s": wall,
+            "train_s": tm["train_s"], "eval_s": tm["eval_s"],
+            "write_s": tm["write_s"], "total_s": tm["total_s"],
+            "eval_s_per_eval": tm["eval_s"] / evals,
+            "train_img_s": imgs / tm["train_s"],
+            "total_img_s": imgs / tm["total_s"]})
+
+    check(file_sets[True] == file_sets[False], "adaptive_cli: "
+          "--stacked-tails wrote %s, the serial run %s"
+          % (file_sets[True], file_sets[False]))
+
+    def desc_vs_plain(root, expt):
+        """The tree's final descriptor files (written through the
+        kernel) against net_desc of its net.npy through mcm_ref,
+        serially: the largest difference and where."""
+        tau_fn = registry[expt].tau
+        net, params, state, extra = read_net(
+            os.path.join(root, expt, "net.npy"), device)
+        worst, worst_at = 0.0, None
+        with mock.patch.object(kernels, "fused_mcm", _plain_stage):
+            for i, k_cpt in enumerate(k_cpts):
+                plain = net_desc(net, ds, params, state,
+                                 batch_size=TRAIN_BATCH,
+                                 tau=tau_fn(extra["t"] - 1), k_cpt=k_cpt)
+                written = np.load(os.path.join(root, expt,
+                                               "%.4i-stats.npy" % i),
+                                  allow_pickle=True)[()]
+                a, b = _scalar_stats(written), _scalar_stats(plain)
+                check([p for p, _ in a] == [p for p, _ in b],
+                      "adaptive_cli: descriptor schemas differ")
+                for (p, x), (_, y) in zip(a, b):
+                    e = abs(x - y) / max(1.0, abs(y))
+                    if e >= worst:
+                        worst, worst_at = e, "k_cpt %d %s" % (i, p)
+        check(worst <= DESC_TOL, "adaptive_cli %s: the descriptor files "
+              "and net_desc through mcm_ref differ by %g at %s"
+              % (root, worst, worst_at))
+        return {"max_err": worst, "at": worst_at, "tolerance": DESC_TOL}
+
+    # The trees as the last run of each left them: the resumed serial tree,
+    # the stacked one.
+    desc = desc_vs_plain(final[ADAPTIVE_RUNS[1][0], False],
+                         ADAPTIVE_RUNS[1][0])
+    desc_stacked = desc_vs_plain(final[ADAPTIVE_STACKED_RUN[0], True],
+                                 ADAPTIVE_STACKED_RUN[0])
     return {"batch": TRAIN_BATCH, "precision": "fp32", "runs": records,
             "fused_mcm_launches": launches, "desc_kernel_vs_plain": desc,
             "stacked_desc_kernel_vs_plain": desc_stacked,
@@ -2886,8 +2992,10 @@ def prep_files_phase(device, d):
 ADAPTIVE_CHECKPOINT = os.path.join(HERE, "results", "nets",
                                    "hybrid-ac-dynkcpt", "net.npy")
 CPU_CANARY_BATCH = 64  # images the fp32 artifact serves on the CPU
-N_EXPORT_WINDOWS = 3  # timed windows of N_SERVE batches, artifact / direct
+N_EXPORT_WINDOWS = 2  # timed windows, artifact / direct
+N_EXPORT_BATCHES = 10  # batches per timed window of an artifact
 PARITY_BATCH = 8  # test images of check_parity on the trained flagship
+CHILD_TIMEOUT_S = 600  # a process of 7f other than the CLIs, from its check
 # Loads and serves an artifact in a process that cannot import jax,
 # mpnn_tpu, or the port's models, utils and experiments; argv: artifact,
 # input batch (.npy), output (.npz), and the price for a dyn_k_cpt one.
@@ -2960,36 +3068,53 @@ def _served(label, fn, direct, xs, per_batch, *price):
 
 
 def _rates(fns, x, *price):
-    """img/s of each callable: N_EXPORT_WINDOWS windows of N_SERVE batches,
-    the callables in turns; {name: (median, windows)}."""
+    """img/s of each callable: N_EXPORT_WINDOWS windows of N_EXPORT_BATCHES
+    batches, the callables in turns; {name: (median, windows)}."""
     rates = {name: [] for name in fns}
     for _ in range(N_EXPORT_WINDOWS):
         for name, fn in fns.items():
             t = time.perf_counter()
-            for _ in range(N_SERVE):
+            for _ in range(N_EXPORT_BATCHES):
                 fn(x, *price)
             torch.cuda.synchronize()
-            rates[name].append(N_SERVE * x.shape[0]
+            rates[name].append(N_EXPORT_BATCHES * x.shape[0]
                                / (time.perf_counter() - t))
     return {name: {"img_s": statistics.median(r), "window_values": r}
             for name, r in rates.items()}
 
 
-def _child_serves(label, d, path, x, want, per_batch, *price):
-    """The artifact loaded and served on the card by _ARTIFACT_CHILD: its
-    outputs equal the direct engine's, with per_batch launches."""
+def start_artifact_child(d, path, x, *price):
+    """The artifact at `path` loaded and served on x by _ARTIFACT_CHILD, in
+    a process of its own, its files in d: (process, output path, start
+    time) for `artifact_child_phase`."""
     import subprocess
     np.save(os.path.join(d, "x.npy"), x.cpu().numpy())
     out = os.path.join(d, "child.npz")
-    t = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", _ARTIFACT_CHILD, path,
-                        os.path.join(d, "x.npy"), out]
-                       + ["%r" % float(p) for p in price],
-                       cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
-                       capture_output=True, text=True, timeout=600)
+    with open(os.path.join(d, "child.err"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _ARTIFACT_CHILD, path,
+             os.path.join(d, "x.npy"), out] + ["%r" % float(p) for p in price],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            stdout=subprocess.DEVNULL, stderr=err)
+    return proc, out, time.perf_counter()
+
+
+def artifact_child_phase(label, started, want, per_batch):
+    """The process `start_artifact_child` started: exit 0, its outputs
+    equal the direct engine's (`want`), with per_batch launches; its
+    seconds from start to this check."""
+    import subprocess
+    proc, out, t = started
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
     secs = time.perf_counter() - t
-    check(r.returncode == 0, "%s: the artifact's process failed:\n%s"
-          % (label, r.stderr[-4000:]))
+    with open(os.path.join(os.path.dirname(out), "child.err")) as f:
+        err = f.read()
+    check(rc == 0, "%s: the artifact's process failed:\n%s"
+          % (label, err[-4000:]))
     got = dict(np.load(out))
     check(int(got.pop("launches")) == per_batch, "%s: the process launched "
           "the kernel %s times" % (label, got.get("launches")))
@@ -2997,14 +3122,15 @@ def _child_serves(label, d, path, x, want, per_batch, *price):
             "process_s": secs}
 
 
-def export_chain_phase(device, caps):
+def export_chain_phase(device, caps, d):
     """The trained flagship exported at the serving batch in bf16 at
-    serve_bf16's calibrated capacities, saved, loaded and served against
-    the direct engine (the synthetic batches serve_phase serves), with
-    20 launches a batch; the same file served by a process that cannot
-    import jax or the port's model code; an fp32 export moved to the CPU
-    against the CPU engine on CPU_CANARY_BATCH images."""
-    import tempfile
+    serve_bf16's calibrated capacities, saved into d, loaded and served
+    against the direct engine (the synthetic batches serve_phase serves),
+    with 20 launches a batch; an fp32 export moved to the CPU against the
+    CPU engine on CPU_CANARY_BATCH images. Returns the record and, for
+    `start_artifact_child` (the same file served by a process that
+    cannot import jax or the port's model code), the artifact's path, a
+    batch and the direct engine's outputs on it."""
     from mpnn_tpu_torch.data import synth
     from mpnn_tpu_torch.models.infer import make_routed_infer_fn
     from mpnn_tpu_torch.ops import config
@@ -3020,39 +3146,37 @@ def export_chain_phase(device, caps):
     per_batch = PER_FORWARD["chain"]
     out = {"checkpoint": os.path.relpath(CHECKPOINT, HERE), "batch": B,
            "capacities": caps, "precision": "bf16"}
-    with tempfile.TemporaryDirectory() as d:
-        config.set_compute_dtype(torch.bfloat16)
-        try:
-            fn, path, out["artifact"] = _export_and_load(
-                net, params, state, d, "chain.pt2", batch_size=B,
-                capacities=caps)
-            infer = make_routed_infer_fn(net, B, capacities=caps)
+    config.set_compute_dtype(torch.bfloat16)
+    try:
+        fn, path, out["artifact"] = _export_and_load(
+            net, params, state, d, "chain.pt2", batch_size=B,
+            capacities=caps)
+        infer = make_routed_infer_fn(net, B, capacities=caps)
 
-            def direct(x):
-                return infer(params, state, x)
-            err, mean_ops, hist = _served("export_chain", fn, direct, xs,
-                                          per_batch)
-            out.update(max_prob_err=err, mean_ops=mean_ops, exit_hist=hist,
-                       launches_per_batch=per_batch,
-                       rates=_rates({"artifact": fn, "direct": direct},
-                                    xs[0]))
-            out["fresh_process"] = _child_serves(
-                "export_chain process", d, path, xs[0], direct(xs[0]),
-                per_batch)
-        finally:
-            config.set_compute_dtype(None)
-        # fp32, traced on the card, moved to the CPU and served there.
-        n = CPU_CANARY_BATCH
-        t = time.perf_counter()
-        ep = ex.export_infer(net, params, state, batch_size=n,
-                             capacities=caps)
-        art32 = {"export_s": time.perf_counter() - t}
-        path = os.path.join(d, "chain32.pt2")
-        ex.save_artifact(ep, path)
-        t = time.perf_counter()
-        canary = ex.serve_fn(path, "cpu")
-        art32.update(bytes=os.path.getsize(path),
-                     load_s=time.perf_counter() - t)
+        def direct(x):
+            return infer(params, state, x)
+        err, mean_ops, hist = _served("export_chain", fn, direct, xs,
+                                      per_batch)
+        out.update(max_prob_err=err, mean_ops=mean_ops, exit_hist=hist,
+                   launches_per_batch=per_batch,
+                   rates=_rates({"artifact": fn, "direct": direct},
+                                xs[0]))
+        fresh = (path, xs[0], {k: v.cpu()
+                               for k, v in direct(xs[0]).items()})
+    finally:
+        config.set_compute_dtype(None)
+    # fp32, traced on the card, moved to the CPU and served there.
+    n = CPU_CANARY_BATCH
+    t = time.perf_counter()
+    ep = ex.export_infer(net, params, state, batch_size=n,
+                         capacities=caps)
+    art32 = {"export_s": time.perf_counter() - t}
+    path = os.path.join(d, "chain32.pt2")
+    ex.save_artifact(ep, path)
+    t = time.perf_counter()
+    canary = ex.serve_fn(path, "cpu")
+    art32.update(bytes=os.path.getsize(path),
+                 load_s=time.perf_counter() - t)
     cnet, cp, cs, _ = read_net(CHECKPOINT, "cpu")
     x = xs[0][:n].cpu()
     got = {k: v.numpy() for k, v in canary(x).items()}
@@ -3071,7 +3195,7 @@ def export_chain_phase(device, caps):
                          "artifact": art32, "max_prob_err": err,
                          "exit_mismatches": int((~same).sum()),
                          "near_tie_examples": int(near_tie.sum())}
-    return out
+    return out, fresh
 
 
 def export_adaptive_phase(device, data):
@@ -3169,16 +3293,102 @@ def export_tree_phase(device, tree):
     return out
 
 
-def parity_phase(device, data):
+def start_parity_cli(d, data):
+    """`python -m mpnn_tpu_torch.check_parity --grads` on the flagship and
+    PARITY_BATCH test images of `data`, in a process of its own, its
+    archive and output in d: (process, output paths, start time) for
+    `parity_phase`."""
+    import subprocess
+    n = PARITY_BATCH
+    arch = os.path.join(d, "parity.npz")
+    np.savez(arch, {k: data[k][:n] for k in ("x0_tr", "x0_ts", "y_tr",
+                                              "y_ts")}
+             | {"m_sym": data["m_sym"]})
+    outs = [os.path.join(d, "parity." + x) for x in ("out", "err")]
+    with open(outs[0], "w") as out, open(outs[1], "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mpnn_tpu_torch.check_parity", CHECKPOINT,
+             "--data", arch, "--batch-size", str(n), "--grads"], cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE), stdout=out, stderr=err,
+            text=True)
+    return proc, outs, time.perf_counter()
+
+
+PROCESS_FLAG = "--phase-process"  # argv[1] of a phase's own process
+
+
+def start_phase_process(name, d):
+    """`python3 chip_smoke.py --phase-process NAME d`: the phase NAME of
+    PROCESS_PHASES in a process of its own, its inputs and record in d:
+    (process, d, name, start time) for `phase_process_result`. The smoke
+    runs host-bound phases that time no rate so, beside those of 7f."""
+    import subprocess
+    with open(os.path.join(d, name + ".err"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), PROCESS_FLAG, name,
+             d], cwd=HERE, stdout=subprocess.DEVNULL, stderr=err)
+    return proc, d, name, time.perf_counter()
+
+
+def phase_process(name, d, device=None):
+    """The body of `start_phase_process`'s process: the phase's record
+    written to d/NAME.json (the phase raises if a gate fails)."""
+    sys.path.insert(0, HERE)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = PROCESS_PHASES[name](device or torch.device("cuda", 0), d)
+    with open(os.path.join(d, name + ".json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_process_result(started):
+    """The record a `start_phase_process` process wrote (it exits 0 only
+    if its gates hold), with its seconds from start to this check."""
+    import subprocess
+    proc, d, name, t = started
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    with open(os.path.join(d, name + ".err")) as f:
+        err = f.read()
+    check(rc == 0, "%s: its process exited %d:\n%s" % (name, rc, err[-4000:]))
+    with open(os.path.join(d, name + ".json")) as f:
+        rec = json.load(f)
+    return dict(rec, process_s=time.perf_counter() - t)
+
+
+def start_export_tree(d, data):
+    """export_tree_phase in a process of its own, on the first train and
+    test batches of `data`, written to d."""
+    np.savez(os.path.join(d, "batches.npz"),
+             **{k: data[k][:BATCH] for k in ("x0_tr", "x0_ts")})
+    return start_phase_process("export_tree", d)
+
+
+def _export_tree_in(device, d):
+    """export_tree_phase of the trained tree read from TREE_CHECKPOINT,
+    on `start_export_tree`'s batches."""
+    from mpnn_tpu_torch.utils.serdes import read_net
+    net, params, state, extra = read_net(TREE_CHECKPOINT, device)
+    data = dict(np.load(os.path.join(d, "batches.npz")))
+    return export_tree_phase(device, (net, params, state, extra["t"], data))
+
+
+PROCESS_PHASES = {"export_tree": _export_tree_in,
+                  "train_cli": lambda device, d: train_cli_phase(device)}
+
+
+def parity_phase(device, data, cli):
     """check_parity and check_grad_parity of the trained flagship on
     PARITY_BATCH test images of the rebuilt hybrid.npz, fp32 on the kernel
     path (TF32 off), against the float64 oracle: both ok, 20 launches a
     forward; under a bf16 compute dtype check_parity must fail (the
-    negative control); then `python -m mpnn_tpu_torch.check_parity
-    --grads` as a process on the same checkpoint and images: exit 0 and
-    PARITY OK."""
+    negative control); then the process `start_parity_cli` started
+    (`python -m mpnn_tpu_torch.check_parity --grads` on the same
+    checkpoint and images): exit 0 and PARITY OK."""
     import subprocess
-    import tempfile
     from mpnn_tpu_torch.ops import config
     from mpnn_tpu_torch.ops.kernels import fused_mcm
     from mpnn_tpu_torch.paritycheck import check_grad_parity, check_parity
@@ -3209,24 +3419,23 @@ def parity_phase(device, data):
     reports["bf16_negative_control"] = {
         "ok": neg["ok"], "failed": sorted(k for k, v in neg["checks"].items()
                                           if not v["ok"])}
-    with tempfile.TemporaryDirectory() as d:
-        arch = os.path.join(d, "parity.npz")
-        np.savez(arch, {k: data[k][:n] for k in ("x0_tr", "x0_ts", "y_tr",
-                                                  "y_ts")}
-                 | {"m_sym": data["m_sym"]})
-        t = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m",
-                            "mpnn_tpu_torch.check_parity", CHECKPOINT,
-                            "--data", arch, "--batch-size", str(n),
-                            "--grads"], cwd=HERE,
-                           env=dict(os.environ, PYTHONPATH=HERE),
-                           capture_output=True, text=True, timeout=600)
-    lines = r.stdout.strip().splitlines()
-    check(r.returncode == 0 and lines and lines[-1] == "PARITY OK",
+    proc, outs, t = cli
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    secs = time.perf_counter() - t
+    texts = []
+    for f in outs:
+        with open(f) as fh:
+            texts.append(fh.read())
+    stdout, stderr = texts
+    lines = stdout.strip().splitlines()
+    check(rc == 0 and lines and lines[-1] == "PARITY OK",
           "parity: check_parity process exit %d, last line %r\n%s"
-          % (r.returncode, lines[-1] if lines else None, r.stderr[-4000:]))
-    reports["cli"] = {"exit": r.returncode, "last_line": lines[-1],
-                      "seconds": time.perf_counter() - t}
+          % (rc, lines[-1] if lines else None, stderr[-4000:]))
+    reports["cli"] = {"exit": rc, "last_line": lines[-1], "seconds": secs}
     reports.update(checkpoint=os.path.relpath(CHECKPOINT, HERE), batch=n,
                    data="hybrid.npz rebuilt, test split")
     return reports
@@ -3286,7 +3495,7 @@ def compact_phase(device, tree):
 # own on the one card, sharing it over gloo (NCCL refuses two ranks on one
 # GPU), and world size 1 over NCCL.
 DP_RANKS = 2
-DP_WINDOWS = (2, 10)  # timed windows x steps of dp_train
+DP_WINDOWS = (2, 5)  # timed windows x steps of dp_train
 MESH_CLI_STEPS = 1  # steps of the mesh CLI runs (one-step gates; see PERF.md)
 MESH_TIMEOUT_S = 300  # a CLI run over ranks, start to end
 ROUTE_REPS = 5  # timed calls of each of sweep_remat's gradient routes
@@ -3306,12 +3515,16 @@ JOIN_TIMEOUT_S = 120  # a rank joining, or waiting in a collective
 
 
 @contextlib.contextmanager
-def _counting_all_reduce():
+def _counting_all_reduce(groups=None):
     """torch.distributed.all_reduce (which mesh and steps call through the
     module) wrapped to count its calls and their host seconds, in the
-    dict yielded, until the block ends."""
+    dict yielded, until the block ends; with groups ({name: process
+    group or None}), also by_group[name] = [calls, host seconds] of the
+    calls over each group that is not None."""
     import torch.distributed as dist
-    counts = {"calls": 0, "host_s": 0.0}
+    groups = groups or {}
+    counts = {"calls": 0, "host_s": 0.0,
+              "by_group": {name: [0, 0.0] for name in groups}}
     inner = dist.all_reduce
 
     def all_reduce(*args, **kwargs):
@@ -3319,8 +3532,13 @@ def _counting_all_reduce():
         try:
             return inner(*args, **kwargs)
         finally:
-            counts["host_s"] += time.perf_counter() - t
+            dt = time.perf_counter() - t
+            counts["host_s"] += dt
             counts["calls"] += 1
+            for name, g in groups.items():
+                if g is not None and kwargs.get("group") is g:
+                    counts["by_group"][name][0] += 1
+                    counts["by_group"][name][1] += dt
 
     dist.all_reduce = all_reduce
     try:
@@ -3544,6 +3762,496 @@ def dp_nccl_phase(device):
             "launches_per_forward": per_fwd}
 
 
+TP_SHAPES = ((1, 2), (2, 2))  # the ('data', 'model') meshes of tp_train
+TP_MIN_CHAN = 64  # mpnn_tpu's shard_params default: stages 4-7 shard
+TP_SHARDED_PER_FORWARD = 6  # stages 4-7: 2 + 2 + 1 + 1 scales
+TP_WINDOWS = (2, 4)  # timed windows x steps of tp_train, per mesh
+
+
+@contextlib.contextmanager
+def _recording_launches(entry="_launch"):
+    """The arguments (the device aside) of every launch through `entry`,
+    the kernel's single-net entry `kernels._launch` or its net axis
+    `kernels._launch_nets`, in the list yielded, until the block ends
+    (the entry wrapped; its count is `_call`'s as ever). A launch's last
+    7 arguments are (B, H, W, Cin, Cprev, Cout, dtype code); on the net
+    axis the 7th is the number of nets and the 10th prev's per-net
+    stride."""
+    from mpnn_tpu_torch.ops import kernels
+    calls, inner = [], getattr(kernels, entry)
+
+    def launch(dev, *args):
+        calls.append(args)
+        return inner(dev, *args)
+
+    with mock.patch.object(kernels, entry, launch):
+        yield calls
+
+
+def expected_tp_launches(net, params, batch):
+    """[(launch shape (B, H, W, Cin, Cprev, Cout), sharded)] of one forward
+    of the flagship chain with `params` (blocks where sharded): each
+    MultiscaleConvMax scale's whole input width and the whole width of
+    the scale before, its output width, and whether that is a block."""
+    from mpnn_tpu_torch.ops import layers as L
+    out = []
+
+    def node(n, p):
+        for c, pc in zip(n.comps, p["layer"]["comps"]):
+            if isinstance(c, L.MultiscaleConvMax):
+                for j, (h, w, cin) in enumerate(c._in_shapes):
+                    cout = pc["w_horz_%d" % j].shape[-1]
+                    cprev = c.hypers.n_chan[j - 1] if j else 0
+                    out.append(((batch, h, w, cin, cprev, cout),
+                                cout != c.hypers.n_chan[j]))
+        for s, ps in zip(n.sinks, p["sinks"]):
+            node(s, ps)
+
+    node(net.root, params)
+    return out
+
+
+def _tp_run(net, trees, data, mesh, shape):
+    """One mesh's part of a tp_train rank: params and velocity sharded by
+    `shard_params(model_parallel=True, min_chan=TP_MIN_CHAN)`, one step
+    (`train_once`, its gradients and params gathered whole), the launch
+    shapes of a forward, and the timed windows (`make_train_loop`, its
+    launches counted from 0, the collectives counted by group)."""
+    from mpnn_tpu_torch.experiments import λ_lrn, τ_ds
+    from mpnn_tpu_torch.models.steps import Schedules, make_train_loop
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    from mpnn_tpu_torch.parallel.mesh import shard_params, unshard_params
+    from mpnn_tpu_torch.utils.tree import tree_leaves, tree_paths
+    params, state, vel = trees
+
+    def sharded():
+        return (shard_params(params, mesh, True, TP_MIN_CHAN), state,
+                shard_params(vel, mesh, True, TP_MIN_CHAN))
+
+    p, s, v = sharded()
+    blocks = [path for path, a, b in zip(
+        tree_paths(p), tree_leaves(p), tree_leaves(params))
+        if a.shape != b.shape]
+    with _recording_launches() as calls:
+        one = train_once(net, p, s, v, data, mesh=mesh)
+    one["launch_shapes"] = [a[-7:-1] for a in calls[:one["launches"][0]]]
+    one["expected_shapes"] = expected_tp_launches(net, p,
+                                                  TRAIN_BATCH // shape[0])
+    for key in ("grads", "params"):
+        one[key] = unshard_params(one[key], mesh, params)
+    loop = make_train_loop(net, TRAIN_BATCH, Schedules(lr=λ_lrn, tau=τ_ds),
+                           mesh=mesh)
+    trees = loop(*sharded(), 0, 1, *data, 1)[:3]  # warm-up
+    n_windows, n_steps = TP_WINDOWS
+    t, windows = 1, []
+    groups = {"model": mesh.model.group, "data": mesh.data.group}
+    with _counting_all_reduce(groups) as counts:
+        fused_mcm.launches = 0  # the main path, counted from 0
+        for _ in range(n_windows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trees = loop(*trees, t, 1, *data, n_steps)[:3]
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+            t += n_steps
+    return {"coords": (mesh.data.index, mesh.model.index),
+            "sharded_leaves": blocks, "one": _to_cpu(one),
+            "launches": fused_mcm.launches, "steps": n_windows * n_steps,
+            "collectives": counts, "window_s": windows}
+
+
+def _tp_tree_run(mesh, device):
+    """The fresh actor tree with stacked tails on a rank of the 1x2 mesh,
+    params and velocity sharded at TP_MIN_CHAN (stages 4-7, the tails'
+    among them, whose stacked scales launch on the kernel's net axis):
+    one step (`train_once`, its gradients and params gathered whole), and
+    the net-axis launches of its forward that write a block of Cout from
+    a per-net, gathered prev twice as wide (stage 4-5's scale 1 through
+    `fused_mcm_scale` under vmap)."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.parallel.mesh import shard_params, unshard_params
+    net, params, state, vel = train_bench.build(0, device, arch="tree")
+    data = train_bench.train_data(net, device)
+    p, v = (shard_params(t, mesh, True, TP_MIN_CHAN) for t in (params, vel))
+    config.set_stacked_tails(True)
+    try:
+        with _recording_launches("_launch_nets") as calls:
+            one = train_once(net, p, state, v, data, mesh=mesh)
+    finally:
+        config.set_stacked_tails(False)
+    one["ext_net_launches"] = sum(
+        1 for a in calls[:one["net_launches"][0]]
+        if a[9] and a[-3] == 2 * a[-2])
+    for key in ("grads", "params"):
+        one[key] = unshard_params(one[key], mesh, params)
+    return _to_cpu(one)
+
+
+def _tp_rank(rank, n_ranks, port, out_dir):
+    """One of tp_train's 4 ranks: the flagship at batch TRAIN_BATCH over
+    the 1x2 mesh of ranks 0 and 1 (ranks 2 and 3 wait), with the stacked
+    tree's step there (`_tp_tree_run`), then over the 2x2 mesh of all 4
+    (`_tp_run`), written to out_dir/rank<r>.pt for the parent."""
+    sys.path.insert(0, HERE)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mpnn_tpu_torch import set_deterministic, train_bench
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.parallel import make_mesh, multihost
+    from mpnn_tpu_torch.parallel.mesh import Axis, Mesh
+    set_deterministic(True)  # the step over 'model' requires it
+    multihost.initialize("127.0.0.1:%d" % port, n_ranks, rank,
+                         timeout_s=JOIN_TIMEOUT_S)
+    try:
+        import torch.distributed as dist
+        device = multihost.local_device()
+        config.set_compute_dtype(None)
+        net, params, state, vel = train_bench.build(0, device)
+        data = train_bench.train_data(net, device)
+        pair = dist.new_group([0, 1])  # every rank makes every group
+        meshes = {(1, 2): Mesh(("data", "model"),
+                               [Axis(1, 0), Axis(2, rank % 2, pair)]),
+                  (2, 2): make_mesh(2, 2)}
+        rec = {"rank": rank, "backend": dist.get_backend(),
+               "device": str(device)}
+        for shape in TP_SHAPES:
+            if rank < math.prod(shape):
+                rec["%dx%d" % shape] = _tp_run(
+                    net, (params, state, vel), data, meshes[shape], shape)
+                if shape == (1, 2):
+                    rec["1x2"]["tree_stacked"] = _tp_tree_run(
+                        meshes[shape], device)
+            multihost.sync_global_devices("tp_train %dx%d" % shape)
+    finally:
+        multihost.shutdown()
+    torch.save(rec, os.path.join(out_dir, "rank%d.pt" % rank))
+
+
+def tp_kernel_rows(device, batch, n_model=2):
+    """The kernel's launches at the shapes a rank of the 'model' axis
+    gives it (`kernel_bench.sharded_scales`: stages 4-7 at batch `batch`,
+    rank 0's blocks), fp32: each against the block of the whole stage's
+    mcm_ref output (TOL) and float64 (F64_TOL), timed against mcm_ref and
+    the cuDNN sequence, beside its bound."""
+    from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.kernel_bench import (bound, device_ms, scale_cost,
+                                             scale_fns, sharded_scales,
+                                             stage_inputs, time_ms)
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm_scale, mcm_ref
+    config.set_compute_dtype(None)
+    rows = []
+    stages = stage_inputs(arch, batch, 32, seed=7, device=device, first=4)
+    for x, wh, b, prev, wv, want, n_ops in sharded_scales(stages, n_model):
+        got = fused_mcm_scale(x, wh, b, prev, wv)
+        ref = mcm_ref([x], [wh], [] if wv is None else [wv], [b],
+                      prev=prev)[0]
+        f64 = mcm_ref([x.double()], [wh.double()],
+                      [] if wv is None else [wv.double()], [b.double()],
+                      prev=None if prev is None else prev.double())[0]
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        err_block = float((got - want).abs().max())
+        rel64 = float((got.double() - f64).abs().max()) / float(
+            f64.abs().max())
+        label = "tp kernel B=%d H=%d Cin=%d Cprev=%d Cout=%d" % (
+            batch, x.shape[1], x.shape[-1],
+            0 if prev is None else prev.shape[-1], wh.shape[-1])
+        check(err <= TOL["fp32"] * scale and err_block <= TOL["fp32"] * scale,
+              "%s: max abs err %g (vs the whole stage's block %g) > %g * "
+              "max|ref| %g" % (label, err, err_block, TOL["fp32"], scale))
+        check(rel64 <= F64_TOL, "%s: %g x max|ref| off float64 > %g"
+              % (label, rel64, F64_TOL))
+        fns = scale_fns(x, wh, b, prev, wv)
+        n_bytes, flops = scale_cost(x, wh, b, prev, wv, n_ops, "fp32")
+        bound_ms, bound_by = bound(n_bytes, flops, "fp32")
+        row = {"batch": batch, "H": x.shape[1], "Cin": x.shape[-1],
+               "Cprev": 0 if prev is None else prev.shape[-1],
+               "Cout": wh.shape[-1], "max_abs_err": err,
+               "max_abs_err_vs_whole_block": err_block,
+               "rel_err_vs_f64": rel64, "bytes": n_bytes, "flops": flops,
+               "bound_ms": bound_ms, "bound_by": bound_by.split()[0]}
+        for name, fn in fns.items():
+            row[name + "ms"] = time_ms(fn)
+            row[name + "device_ms"] = device_ms(fn)
+        rows.append(row)
+    return rows
+
+
+TP_NETS = 8  # nets of tp_net_axis_rows, as many as a tree's stacked tails
+
+
+def tp_net_axis_rows(device, batch, n_model=2, n_nets=TP_NETS):
+    """The sharded launch shapes on the kernel's net axis, as stacked
+    tails under the 'model' axis make them: `torch.func.vmap` of
+    `fused_mcm_scale` over n_nets nets, each with its own x, weight
+    blocks, bias block and whole prev of the scale before, one net-axis
+    launch a call; each net's output against mcm_ref (TOL) and float64
+    (F64_TOL), fp32; the call timed against mcm_ref net after net and
+    under the same vmap (cuDNN's grouped convs), beside its bound."""
+    from mpnn_tpu_torch.experiments import arch
+    from mpnn_tpu_torch.kernel_bench import (bound, scale_cost,
+                                             sharded_scales, stage_inputs,
+                                             time_ms)
+    from mpnn_tpu_torch.ops import config
+    from mpnn_tpu_torch.ops.kernels import fused_mcm, fused_mcm_scale, mcm_ref
+    config.set_compute_dtype(None)
+    gen = torch.Generator(device=device).manual_seed(13)
+
+    def nets(t):
+        noise = torch.randn((n_nets,) + tuple(t.shape), generator=gen,
+                            device=t.device)
+        return t + 0.1 * float(t.abs().max()) * noise
+
+    def one(x, wh, b, prev=None, wv=None):
+        return mcm_ref([x], [wh], [] if wv is None else [wv], [b],
+                       prev=prev)[0]
+
+    rows = []
+    stages = stage_inputs(arch, batch, 32, seed=11, device=device, first=4)
+    for scale in sharded_scales(stages, n_model):
+        args = [nets(t) for t in scale[:5] if t is not None]
+        call = torch.func.vmap(fused_mcm_scale)
+        n0, m0 = fused_mcm.launches, fused_mcm.net_launches
+        got = call(*args)
+        torch.cuda.synchronize()
+        launched = (fused_mcm.launches - n0, fused_mcm.net_launches - m0)
+        x, wh = args[:2]
+        prev = args[3] if len(args) > 3 else None
+        label = "tp net axis %d nets B=%d H=%d Cprev=%d Cout=%d" % (
+            n_nets, batch, x.shape[2], 0 if prev is None else prev.shape[-1],
+            wh.shape[-1])
+        check(launched == (1, 1), "%s: launches %s, expected one on the net "
+              "axis" % (label, launched))
+
+        def plain():
+            return [one(*[t[i] for t in args]) for i in range(n_nets)]
+
+        err = rel = rel64 = 0.0
+        for i, ref in enumerate(plain()):
+            f64 = one(*[t[i].double() for t in args])
+            scale_i = float(ref.abs().max())
+            e = float((got[i] - ref).abs().max())
+            check(e <= TOL["fp32"] * scale_i, "%s net %d: max abs err %g > "
+                  "%g * max|ref| %g" % (label, i, e, TOL["fp32"], scale_i))
+            r64 = float((got[i].double() - f64).abs().max()) / float(
+                f64.abs().max())
+            check(r64 <= F64_TOL, "%s net %d: %g x max|ref| off float64 > "
+                  "%g" % (label, i, r64, F64_TOL))
+            err, rel, rel64 = max(err, e), max(rel, e / scale_i), max(rel64,
+                                                                      r64)
+        n_bytes, flops = scale_cost(*scale[:5], scale[6], "fp32")
+        bound_ms, bound_by = bound(n_nets * n_bytes, n_nets * flops, "fp32")
+        library = torch.func.vmap(one)
+        rows.append({"nets": n_nets, "batch": batch, "H": x.shape[2],
+                     "Cin": x.shape[-1],
+                     "Cprev": 0 if prev is None else prev.shape[-1],
+                     "Cout": wh.shape[-1], "max_abs_err": err,
+                     "max_rel_err": rel, "rel_err_vs_f64": rel64,
+                     "ms": time_ms(lambda: call(*args)),
+                     "plain_ms": time_ms(plain),
+                     "library_ms": time_ms(lambda: library(*args)),
+                     "bound_ms": bound_ms, "bound_by": bound_by.split()[0]})
+    return rows
+
+
+def tp_train_phase(device):
+    """tp_train: the flagship actor chain at k_cpts[4], fp32, global batch
+    TRAIN_BATCH, over a 1x2 and a 2x2 ('data', 'model') mesh of ranks
+    sharing the card over gloo (`_tp_rank`: one start of 4 ranks), params
+    and velocity sharded by
+    `shard_params(model_parallel=True, min_chan=64)` (the 8 weight
+    leaves of stages 4-7; the 16-wide routers and 10-class leaves
+    whole): one step against the single-process kernel step at the step
+    gates, every rank's whole params equal after it, 20 launches a
+    forward on each rank, 6 of them at sharded shapes (the launch shapes
+    of a forward as expected, counted in each rank's process); then
+    TP_WINDOWS timed windows: img/s over the global batch, each rank's
+    launches counted from 0 against 20 x steps, and the collectives a
+    step over 'model' and 'data' with their host time. The sharded
+    launch shapes at a rank's batch (128 on 1x2, 64 on 2x2) against
+    mcm_ref and float64, timed (`tp_kernel_rows`). On 1x2 also the actor
+    tree with stacked tails (`_tp_tree_run`): one step against the
+    single-process stacked step at the step gates, the ranks' whole
+    params equal, its launches a forward as the meshless stacked tree's
+    (33, 9 on the net axis), some of them net-axis launches from a
+    per-net prev; and the sharded shapes on the net axis against mcm_ref
+    and float64 (`tp_net_axis_rows`)."""
+    from mpnn_tpu_torch import train_bench
+    from mpnn_tpu_torch.ops import config
+    config.set_compute_dtype(None)
+    net, params, state, vel = train_bench.build(0, device)
+    data = train_bench.train_data(net, device)
+    ref = _to_cpu(train_once(net, params, state, vel, data))
+    per_fwd = mcm_launches_per_forward(net)
+    zero = zero_grad_paths(net)
+    tnet, tparams, tstate, tvel = train_bench.build(0, device, arch="tree")
+    config.set_stacked_tails(True)
+    try:
+        tree_ref = _to_cpu(train_once(tnet, tparams, tstate, tvel,
+                                      train_bench.train_data(tnet, device)))
+    finally:
+        config.set_stacked_tails(False)
+    tree_zero = zero_grad_paths(tnet)
+    del tparams, tstate, tvel
+    meshes, kernel_rows = {}, {}
+    t0 = time.perf_counter()
+    started = _start_ranks(_tp_rank, 4)
+    wall = time.perf_counter() - t0
+    for shape in TP_SHAPES:
+        n_ranks = math.prod(shape)
+        name = "%dx%d" % shape
+        ranks = [dict(r[name], rank=r["rank"], backend=r["backend"])
+                 for r in started[:n_ranks]]
+        label = "tp_train %s" % name
+        loss_err, errs = step_gates(label, ranks[0]["one"], ref, zero)
+        for r in ranks:
+            check(len(r["sharded_leaves"]) == 8, "%s rank %d: %d sharded "
+                  "leaves, expected 8" % (label, r["rank"],
+                                          len(r["sharded_leaves"])))
+            one = r["one"]
+            same = [torch.equal(a, b) for a, b in zip(
+                _leaves_only(one["params"]),
+                _leaves_only(ranks[0]["one"]["params"]))]
+            check(all(same), "%s: rank %d's whole params differ from rank "
+                  "0's after the step" % (label, r["rank"]))
+            got = sorted(map(tuple, one["launch_shapes"]))
+            want = sorted(tuple(sh) for sh, _ in one["expected_shapes"])
+            r["sharded_per_forward"] = sum(
+                sharded for _, sharded in one["expected_shapes"])
+            check(tuple(one["launches"]) == (per_fwd, per_fwd)
+                  and got == want
+                  and r["sharded_per_forward"] == TP_SHARDED_PER_FORWARD
+                  and r["launches"] == per_fwd * r["steps"],
+                  "%s rank %d: launches %s (shapes %s, expected %s; %d "
+                  "sharded), %d in %d steps; expected %d a forward, %d "
+                  "sharded" % (label, r["rank"], one["launches"], got,
+                               want, r["sharded_per_forward"],
+                               r["launches"], r["steps"], per_fwd,
+                               TP_SHARDED_PER_FORWARD))
+        n_steps = TP_WINDOWS[1]
+        values = [TRAIN_BATCH * n_steps / w for w in ranks[0]["window_s"]]
+        by_group = {g: {"per_step": [r["collectives"]["by_group"][g][0]
+                                     / r["steps"] for r in ranks],
+                        "host_ms_per_step": [
+                            1e3 * r["collectives"]["by_group"][g][1]
+                            / r["steps"] for r in ranks]}
+                    for g in ("model", "data")}
+        meshes[name] = {
+            "ranks": n_ranks, "backend": ranks[0]["backend"],
+            "rows_per_rank": TRAIN_BATCH // shape[0],
+            "sharded_leaves": ranks[0]["sharded_leaves"],
+            "loss": ranks[0]["one"]["loss"], "loss_single": ref["loss"],
+            "loss_rel_err": loss_err, "errors": errs,
+            "launches": [r["launches"] for r in ranks],
+            "steps": ranks[0]["steps"],
+            "sharded_launches_per_forward": [r["sharded_per_forward"]
+                                             for r in ranks],
+            "value": statistics.median(values),
+            "unit": "img/s over the global batch, median of windows",
+            "window_values": values,
+            "collectives": by_group,
+            "step_ms": [1e3 * sum(r["window_s"]) / r["steps"]
+                        for r in ranks]}
+        if "tree_stacked" in ranks[0]:
+            meshes[name]["tree_stacked"] = tp_tree_gates(
+                label, [r["tree_stacked"] for r in ranks], tree_ref,
+                tree_zero)
+        kernel_rows[name] = tp_kernel_rows(device, TRAIN_BATCH // shape[0])
+    return {"batch": TRAIN_BATCH, "precision": "fp32",
+            "min_chan": TP_MIN_CHAN, "tolerances": TRAIN_TOL,
+            "launches_per_forward": per_fwd, "meshes": meshes,
+            "ranks_wall_s": wall,
+            "kernel_at_rank_batch": kernel_rows,
+            "net_axis_at_rank_batch": tp_net_axis_rows(device, TRAIN_BATCH)}
+
+
+def tp_tree_gates(label, trees, ref, zero):
+    """The stacked tree's step on each rank of a mesh (`_tp_tree_run`)
+    against the single-process stacked step `ref`: the step gates, the
+    ranks' whole params equal, STACKED_PER_FORWARD's launches and some
+    net-axis launches from a per-net prev."""
+    label += " tree stacked"
+    loss_err, errs = step_gates(label, trees[0], ref, zero)
+    n, m = STACKED_PER_FORWARD["tree"]
+    for i, t in enumerate(trees):
+        same = [torch.equal(a, b) for a, b in zip(
+            _leaves_only(t["params"]), _leaves_only(trees[0]["params"]))]
+        check(all(same), "%s: rank %d's whole params differ from rank 0's "
+              "after the step" % (label, i))
+        check(tuple(t["launches"]) == (n, n)
+              and tuple(t["net_launches"]) == (m, m)
+              and t["ext_net_launches"] > 0,
+              "%s rank %d: launches %s (net axis %s, %d from a per-net "
+              "prev); expected %d (%d) a forward, some from a per-net prev"
+              % (label, i, t["launches"], t["net_launches"],
+                 t["ext_net_launches"], n, m))
+    return {"loss": trees[0]["loss"], "loss_single": ref["loss"],
+            "loss_rel_err": loss_err, "errors": errs,
+            "launches_per_forward": n, "net_launches_per_forward": m,
+            "ext_net_launches_per_forward": [t["ext_net_launches"]
+                                             for t in trees]}
+
+
+def tp_summary(rows_by_mesh):
+    """Per mesh: the sharded launches' summed times (kernel, mcm_ref, the
+    cuDNN sequence; call and device) and bound, the worst errors."""
+    out = {}
+    for name, rows in rows_by_mesh.items():
+        tot = {k: sum(r[k] for r in rows) for k in (
+            "ms", "device_ms", "plain_ms", "plain_device_ms",
+            "cudnn_conv_sequence_ms", "cudnn_conv_sequence_device_ms",
+            "bound_ms")}
+        tot.update(batch=rows[0]["batch"], n_launches=len(rows),
+                   max_abs_err=max(r["max_abs_err"] for r in rows),
+                   max_rel_err_vs_f64=max(r["rel_err_vs_f64"]
+                                          for r in rows))
+        out[name] = tot
+    return out
+
+
+def start_dryrun(out_path):
+    """`python -m mpnn_tpu_torch.dryrun 4` (4 ranks on the card over gloo;
+    phase 1 on mpnn_tpu's 2x2 dp x tp mesh) in a session of its own, its
+    output to out_path: the process. The smoke starts it beside the
+    phases of 7f, which time nothing, reads it in `dryrun_phase` before
+    any timed phase and stops what is left of it with `stop_dryrun`."""
+    import subprocess
+    with open(out_path, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "mpnn_tpu_torch.dryrun", "4"], cwd=HERE,
+            stdout=out, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+
+
+def stop_dryrun(proc):
+    """Kill the dry run's session (the process and the ranks it spawned),
+    whether or not it has ended."""
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def dryrun_phase(proc, out_path):
+    """dryrun: the run `start_dryrun` started, its OK lines (phase 1 on
+    the 2x2 mesh, on the card) and its seconds."""
+    rc = proc.wait(timeout=MESH_TIMEOUT_S)
+    with open(out_path) as f:
+        text = f.read()
+    check(rc == 0, "dryrun: exit %d\n%s" % (rc, text[-3000:]))
+    lines = [x for x in text.splitlines()
+             if x.startswith("dryrun_multichip(4)")]
+    check(len(lines) == 3 and "mesh={'data': 2, 'model': 2}" in lines[0]
+          and lines[0].endswith(" OK") and lines[1].endswith(" OK")
+          and " on cuda " in lines[2], "dryrun: %r" % lines)
+    return {"lines": lines}
+
+
 def _desc_leaves(desc, path=""):
     """{path: float64 array} of every numeric leaf of a descriptor."""
     if isinstance(desc, dict):
@@ -3650,11 +4358,47 @@ def _eval_batches(d):
     return sum(-(-len(x) // TRAIN_BATCH) for x in (ds.x0_tr, ds.x0_ts))
 
 
-def mesh_cli_phases(device):
+def start_mesh_clis(d):
+    """sweep_mesh's and mesh_cli's CLI runs (`mesh_cli_phases`) in
+    processes of their own, their data and output in d: (processes,
+    output paths, start time). The smoke starts them in phase 7f, beside
+    phases that time nothing, and checks them after dp_nccl."""
+    from mpnn_tpu_torch.parallel.multihost import free_port
+    _mesh_data(d)
+    common = ["--n-iter", str(MESH_CLI_STEPS), "--t-log", str(CLI_T_LOG),
+              "--batch-size", str(TRAIN_BATCH)]
+    out = {k: os.path.join(d, k + ".out") for k in ("sweep", "cli")}
+    t0 = time.perf_counter()
+    procs = {"sweep": _start_cli(
+        ["synth-ac", "--vmap-sweep", "--mesh", "%dx1" % DP_RANKS,
+         "--data-root", d, "--out-root", os.path.join(d, "mesh"), *common],
+        out["sweep"])}
+    try:
+        procs["cli"] = _start_cli(
+            ["synth-ac", "--net", "4", "--multihost", "--mesh", "auto",
+             "--data-root", d, "--out-root", os.path.join(d, "torchrun"),
+             *common], out["cli"],
+            launcher=("-m", "torch.distributed.run", "--nproc-per-node",
+                      str(DP_RANKS), "--master-addr", "127.0.0.1",
+                      "--master-port", str(free_port())))
+    except BaseException:
+        procs["sweep"].kill()
+        raise
+    return procs, out, t0
+
+
+def _kill(started):
+    """Kill what is still running of `start_mesh_clis`'s processes."""
+    for p in (started or ({},))[0].values():
+        if p.poll() is None:
+            p.kill()
+
+
+def mesh_cli_phases(device, d, started):
     """sweep_mesh and mesh_cli, the CLI over ranks in processes of its own,
-    both started at once, MESH_CLI_STEPS steps at batch TRAIN_BATCH, fp32,
-    on the small synthetic archive, each against the same run in this
-    process (made while they run):
+    both started at once by `start_mesh_clis` in d, MESH_CLI_STEPS steps
+    at batch TRAIN_BATCH, fp32, on the small synthetic archive, each
+    against the same run in this process:
 
     - sweep_mesh: `train synth-ac --vmap-sweep --mesh 2x1` (the CLI starts
       2 ranks on the card, 4 nets each, no collective between nets)
@@ -3675,97 +4419,76 @@ def mesh_cli_phases(device):
     Returns the two phases' records."""
     import contextlib
     import io
-    import tempfile
     from mpnn_tpu_torch import train as cli
     from mpnn_tpu_torch.experiments import arch, make_experiments
     from mpnn_tpu_torch.kernel_bench import sweep_stage_inputs
     from mpnn_tpu_torch.ops import config
     from mpnn_tpu_torch.ops.kernels import fused_mcm
-    from mpnn_tpu_torch.parallel.multihost import free_port
     config.set_compute_dtype(None)
     n_per_rank = N_NETS // DP_RANKS
     steps = MESH_CLI_STEPS
-    common = ["--n-iter", str(steps), "--t-log", str(CLI_T_LOG),
-              "--batch-size", str(TRAIN_BATCH)]
     registry = make_experiments()
-    with tempfile.TemporaryDirectory() as d:
-        _mesh_data(d)
-        n_batches = _eval_batches(d)
-        out = {k: os.path.join(d, k + ".out") for k in ("sweep", "cli")}
-        t0 = time.perf_counter()
-        procs = {
-            "sweep": _start_cli(
-                ["synth-ac", "--vmap-sweep", "--mesh", "%dx1" % DP_RANKS,
-                 "--data-root", d, "--out-root", os.path.join(d, "mesh"),
-                 *common], out["sweep"]),
-            "cli": _start_cli(
-                ["synth-ac", "--net", "4", "--multihost", "--mesh", "auto",
-                 "--data-root", d, "--out-root",
-                 os.path.join(d, "torchrun"), *common], out["cli"],
-                launcher=("-m", "torch.distributed.run", "--nproc-per-node",
-                          str(DP_RANKS), "--master-addr", "127.0.0.1",
-                          "--master-port", str(free_port())))}
-        try:
-            n0, m0 = fused_mcm.launches, fused_mcm.net_launches
-            with contextlib.redirect_stdout(io.StringIO()):
-                cli.train_experiment(
-                    "synth-ac", n_iter=steps, t_log=CLI_T_LOG,
-                    batch_size=TRAIN_BATCH, data_root=d,
-                    out_root=os.path.join(d, "meshless"), device=device,
-                    vmap_sweep=True)
-                meshless_launches = fused_mcm.net_launches - m0
-                n1 = fused_mcm.launches
-                cli.train_experiment(
-                    "synth-ac", n_iter=steps, t_log=CLI_T_LOG,
-                    batch_size=TRAIN_BATCH, net_indices=[4], data_root=d,
-                    out_root=os.path.join(d, "single"), device=device)
-                single_launches = fused_mcm.launches - n1
-            check(n1 - n0 == meshless_launches, "sweep_mesh: the meshless "
-                  "sweep launched off the net axis")
-            width = sweep_width_gap(device)
-            _, sweep_ranks = _finish_cli(procs["sweep"], out["sweep"],
-                                         "sweep_mesh")
-            text, cli_ranks = _finish_cli(procs["cli"], out["cli"],
-                                          "mesh_cli")
-        finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-        wall = time.perf_counter() - t0
-        # One evaluation, at the end (steps < CLI_T_LOG).
-        net = registry["synth-ac"].nets[4]((32, 32, 3), (10,))
-        per_fwd = mcm_launches_per_forward(net)
-        expect = per_fwd * (steps + n_batches)
-        zero = zero_grad_paths(net)
+    procs, out, t0 = started
+    n_batches = _eval_batches(d)
+    try:
+        n0, m0 = fused_mcm.launches, fused_mcm.net_launches
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.train_experiment(
+                "synth-ac", n_iter=steps, t_log=CLI_T_LOG,
+                batch_size=TRAIN_BATCH, data_root=d,
+                out_root=os.path.join(d, "meshless"), device=device,
+                vmap_sweep=True)
+            meshless_launches = fused_mcm.net_launches - m0
+            n1 = fused_mcm.launches
+            cli.train_experiment(
+                "synth-ac", n_iter=steps, t_log=CLI_T_LOG,
+                batch_size=TRAIN_BATCH, net_indices=[4], data_root=d,
+                out_root=os.path.join(d, "single"), device=device)
+            single_launches = fused_mcm.launches - n1
+        check(n1 - n0 == meshless_launches, "sweep_mesh: the meshless "
+              "sweep launched off the net axis")
+        width = sweep_width_gap(device)
+        _, sweep_ranks = _finish_cli(procs["sweep"], out["sweep"],
+                                     "sweep_mesh")
+        text, cli_ranks = _finish_cli(procs["cli"], out["cli"],
+                                      "mesh_cli")
+    finally:
+        _kill(started)
+    wall = time.perf_counter() - t0
+    # One evaluation, at the end (steps < CLI_T_LOG).
+    net = registry["synth-ac"].nets[4]((32, 32, 3), (10,))
+    per_fwd = mcm_launches_per_forward(net)
+    expect = per_fwd * (steps + n_batches)
+    zero = zero_grad_paths(net)
 
-        check([r["rank"] for r in sweep_ranks] == list(range(DP_RANKS))
-              and all(r["mesh"] == {"sweep": DP_RANKS, "data": 1}
-                      and r["fused_mcm_net_launches"] == expect
-                      == r["fused_mcm_launches"] for r in sweep_ranks)
-              and meshless_launches == expect,
-              "sweep_mesh: ranks %s, meshless %d net-axis launches; "
-              "expected %d each" % (sweep_ranks, meshless_launches, expect))
-        got = os.path.join(d, "mesh", "synth-ac")
-        want = os.path.join(d, "meshless", "synth-ac")
-        check(_files_of(got) == _files_of(want), "sweep_mesh: files %s vs "
-              "%s" % (_files_of(got), _files_of(want)))
-        members = [compare_net_files("sweep_mesh", got, want, i, zero, 1,
-                                     SWEEP_MESH_VEL_TOL)
-                   for i in range(N_NETS)]
+    check([r["rank"] for r in sweep_ranks] == list(range(DP_RANKS))
+          and all(r["mesh"] == {"sweep": DP_RANKS, "data": 1}
+                  and r["fused_mcm_net_launches"] == expect
+                  == r["fused_mcm_launches"] for r in sweep_ranks)
+          and meshless_launches == expect,
+          "sweep_mesh: ranks %s, meshless %d net-axis launches; "
+          "expected %d each" % (sweep_ranks, meshless_launches, expect))
+    got = os.path.join(d, "mesh", "synth-ac")
+    want = os.path.join(d, "meshless", "synth-ac")
+    check(_files_of(got) == _files_of(want), "sweep_mesh: files %s vs "
+          "%s" % (_files_of(got), _files_of(want)))
+    members = [compare_net_files("sweep_mesh", got, want, i, zero, 1,
+                                 SWEEP_MESH_VEL_TOL)
+               for i in range(N_NETS)]
 
-        check([r["rank"] for r in cli_ranks] == list(range(DP_RANKS))
-              and all(r["mesh"] == {"data": DP_RANKS, "model": 1}
-                      and r["fused_mcm_launches"] == expect
-                      for r in cli_ranks) and single_launches == expect,
-              "mesh_cli: ranks %s, single %d launches; expected %d each"
-              % (cli_ranks, single_launches, expect))
-        check(all("[multihost: rank %d of %d]" % (r, DP_RANKS) in text
-                  for r in range(DP_RANKS)), "mesh_cli: ranks not joined")
-        got = os.path.join(d, "torchrun", "synth-ac")
-        want = os.path.join(d, "single", "synth-ac")
-        check(_files_of(got) == _files_of(want), "mesh_cli: files %s vs %s"
-              % (_files_of(got), _files_of(want)))
-        cli_errs = compare_net_files("mesh_cli", got, want, 4, zero, 1)
+    check([r["rank"] for r in cli_ranks] == list(range(DP_RANKS))
+          and all(r["mesh"] == {"data": DP_RANKS, "model": 1}
+                  and r["fused_mcm_launches"] == expect
+                  for r in cli_ranks) and single_launches == expect,
+          "mesh_cli: ranks %s, single %d launches; expected %d each"
+          % (cli_ranks, single_launches, expect))
+    check(all("[multihost: rank %d of %d]" % (r, DP_RANKS) in text
+              for r in range(DP_RANKS)), "mesh_cli: ranks not joined")
+    got = os.path.join(d, "torchrun", "synth-ac")
+    want = os.path.join(d, "single", "synth-ac")
+    check(_files_of(got) == _files_of(want), "mesh_cli: files %s vs %s"
+          % (_files_of(got), _files_of(want)))
+    cli_errs = compare_net_files("mesh_cli", got, want, 4, zero, 1)
     rows = net_axis_rows("sweep_mesh", sweep_stage_inputs(
         arch, n_per_rank, TRAIN_BATCH, 32, seed=6, device=device),
         n_per_rank, ("fp32",), timed=False)
@@ -3979,8 +4702,8 @@ DET_MODES = {"default": (False, False, True),
              "deterministic_no_fill": (True, True, False)}
 TIMED_MODES = ("default", "deterministic")
 REPEAT_STEPS = 3
-REPEAT_WINDOWS = 3
-REPEAT_TIMED = {"serial": 20, "sweep": 10}
+REPEAT_WINDOWS = 2
+REPEAT_TIMED = {"serial": 10, "sweep": 5}
 NAN_CHECKS = 20
 
 
@@ -4216,69 +4939,125 @@ def main():
           **tree_sweep_stacked)
 
     # 7d. routed serving of the trained adaptive tree (its bf16 serving
-    # counted from 0), and its descriptors beside its training's files.
+    # counted from 0).
     serve_tree, tree = tree_serve_phase(device)
     phase("tree_serve", **serve_tree)
-    phase("tree_desc_vs_jax_files", **tree_desc_phase(device, tree))
 
-    # 7e. serving artifacts through torch.export (each artifact's
-    # launches counted from 0 per served batch), the parity harness
-    # against the float64 oracle, and the compact archive's writer.
-    t_new = time.perf_counter()
-    phase("export_chain", **export_chain_phase(device, caps))
-    phase("export_adaptive", **export_adaptive_phase(device, tree[4]))
-    phase("export_tree", **export_tree_phase(device, tree))
-    phase("parity", **parity_phase(device, tree[4]))
-    phase("compact", **compact_phase(device, tree),
-          export_parity_compact_s=time.perf_counter() - t_new)
-    del tree
-
-    # 8. the training CLI's path, serial and --vmap-sweep, its launches
-    # counted from 0.
-    t = time.perf_counter()
-    cli = train_cli_phase(device)
-    phase("train_cli", **cli, phase_s=time.perf_counter() - t)
-
-    # 9. the adaptive trainer's CLI, in processes of its own.
-    adaptive = adaptive_cli_phase(device)
-    phase("adaptive_cli", **adaptive)
-    tree_cli = {r["run"]: r["launches"] for r in cli["runs"] + cli[
-        "sweep_runs"] if "-tree" in r["run"]}
-
-    # 10-15. the rest of the layer zoo, the TF1 parity modes, a record in
-    # the reference's schema and real-data prep; each path's launches
-    # counted from 0 where it is the main path.
     import tempfile
-    t_zoo = time.perf_counter()
-    phase("zoo_layers", **zoo_layers_phase(device))
-    phase("tf1_pyramid", **tf1_pyramid_phase(device))
+    # Removed at the end: the mesh CLIs started in 7f are checked in 18-19.
+    bg_dir = tempfile.TemporaryDirectory()
+    bg = bg_dir.name
+    # 7e. serving artifacts through torch.export (each artifact's
+    # launches counted from 0 per served batch).
+    chain_export, fresh = export_chain_phase(device, caps, bg)
+    phase("export_chain", **chain_export)
+    phase("export_adaptive", **export_adaptive_phase(device, tree[4]))
+
+    # 12. a record in the reference's schema (it times its serving).
     with tempfile.TemporaryDirectory() as d:
         ref_import = reference_import_phase(device, d)
     phase("reference_import", **ref_import)
-    zoo_train = zoo_train_phase(device)
-    phase("zoo_train", **zoo_train)
-    with tempfile.TemporaryDirectory() as d:
-        tf1_cli = tf1_cli_phase(device, d)
-    phase("tf1_cli", **tf1_cli)
-    with tempfile.TemporaryDirectory() as d:
-        prep_files = prep_files_phase(device, d)
-    phase("prep_files", zoo_phases_s=time.perf_counter() - t_zoo,
-          **prep_files)
+
+    # 7f-15. Phases that time no rate, in this process, beside the
+    # processes of phases that time none either: the dry run (22), the
+    # artifact's fresh process, check_parity's process, the tree's
+    # artifact (export_tree: its export and load seconds), the training
+    # CLI's path (8), the adaptive trainer's CLI (9) and the mesh CLIs
+    # (18-19, checked after dp_nccl). The in-process phases: the tree's
+    # descriptors beside its training's files, the compact archive's
+    # writer, the parity harness against the float64 oracle, the rest
+    # of the layer zoo, the TF1 parity modes and real-data prep; each
+    # path's launches counted from 0 where it is the main path. Then
+    # each process of 7f is waited for and checked.
+    dirs = {k: os.path.join(bg, k) for k in (
+        "dryrun", "child", "parity", "export_tree", "train_cli", "adaptive",
+        "mesh")}
+    for x in dirs.values():
+        os.makedirs(x)
+    dry_out = os.path.join(dirs["dryrun"], "dryrun.out")
+    dryrun = start_dryrun(dry_out)
+    child = parity_cli = tree_export = cli_runs = None
+    adaptive_runs = mesh_clis = None
+    try:
+        t_bg = time.perf_counter()
+        child = start_artifact_child(dirs["child"], *fresh[:2])
+        parity_cli = start_parity_cli(dirs["parity"], tree[4])
+        tree_export = start_export_tree(dirs["export_tree"], tree[4])
+        # 8. the training CLI's path, serial and --vmap-sweep, its
+        # launches counted from 0 in its process.
+        cli_runs = start_phase_process("train_cli", dirs["train_cli"])
+        adaptive_runs = start_adaptive_cli(dirs["adaptive"])
+        mesh_clis = start_mesh_clis(dirs["mesh"])
+        phase("tree_desc_vs_jax_files", **tree_desc_phase(device, tree))
+        phase("compact", **compact_phase(device, tree))
+        t_zoo = time.perf_counter()
+        phase("zoo_layers", **zoo_layers_phase(device))
+        phase("tf1_pyramid", **tf1_pyramid_phase(device))
+        zoo_train = zoo_train_phase(device)
+        phase("zoo_train", **zoo_train)
+        phase("parity", **parity_phase(device, tree[4], parity_cli))
+        # The CLIs of 14 and 15 leave deterministic algorithms on, as
+        # the parallel phases after them have run since they joined.
+        with tempfile.TemporaryDirectory() as d:
+            tf1_cli = tf1_cli_phase(device, d)
+        phase("tf1_cli", **tf1_cli)
+        with tempfile.TemporaryDirectory() as d:
+            prep_files = prep_files_phase(device, d)
+        phase("prep_files", zoo_phases_s=time.perf_counter() - t_zoo,
+              **prep_files)
+        in_process_s = time.perf_counter() - t_bg
+        cli = phase_process_result(cli_runs)
+        phase("train_cli", **cli)
+        tree_cli = {r["run"]: r["launches"] for r in cli["runs"] + cli[
+            "sweep_runs"] if "-tree" in r["run"]}
+        phase("export_tree", **phase_process_result(tree_export))
+        phase("export_process", **artifact_child_phase(
+            "export_chain process", child, fresh[2],
+            PER_FORWARD["chain"]))
+        phase("dryrun", **dryrun_phase(dryrun, dry_out))
+        adaptive = adaptive_cli_phase(device, dirs["adaptive"],
+                                      adaptive_runs)
+        phase("adaptive_cli", in_process_beside_s=in_process_s,
+              side_by_side_s=time.perf_counter() - t_bg, **adaptive)
+    except BaseException:
+        _kill(mesh_clis)
+        raise
+    finally:
+        stop_dryrun(dryrun)
+        for started in (child, parity_cli, tree_export, cli_runs):
+            if started is not None and started[0].poll() is None:
+                started[0].kill()
+                started[0].wait()
+        if adaptive_runs is not None:
+            adaptive_runs[2].set()
+            adaptive_runs[0].join(60)
+    del tree
 
     # 16-20. parallelism: data-parallel ranks sharing the card over gloo,
     # world size 1 over NCCL, the sweep mesh and torchrun through the CLI,
     # and remat under the sweep step; each rank's launches counted from 0
     # in its own process.
     t_par = time.perf_counter()
-    dp = dp_train_phase(device, train["fp32"])
-    phase("dp_train", **dp)
-    phase("dp_nccl", **dp_nccl_phase(device))
-    sweep_mesh, mesh_cli = mesh_cli_phases(device)
+    try:
+        dp = dp_train_phase(device, train["fp32"])
+        phase("dp_train", **dp)
+        phase("dp_nccl", **dp_nccl_phase(device))
+        sweep_mesh, mesh_cli = mesh_cli_phases(device, dirs["mesh"],
+                                               mesh_clis)
+    finally:
+        _kill(mesh_clis)
+        bg_dir.cleanup()
     phase("sweep_mesh", **sweep_mesh)
     phase("mesh_cli", **mesh_cli)
     sweep_remat = sweep_remat_phase(device)
     phase("sweep_remat", parallel_phases_s=time.perf_counter() - t_par,
           **sweep_remat)
+
+    # 21. the mesh's 'model' axis: the flagship sharded over 1x2 and 2x2
+    # meshes, the stacked tree over 1x2.
+    t_tp = time.perf_counter()
+    tp = tp_train_phase(device)
+    phase("tp_train", tp_phase_s=time.perf_counter() - t_tp, **tp)
 
     bf = [r for r in rows if r["dtype"] == "bf16" and r["batch"] == BATCH]
     bound_ms, bound_by = bound(sum(r["bytes"] for r in bf),
@@ -4356,6 +5135,15 @@ def main():
             "dp_train_steps": dp["steps"],
             "mesh_cli_per_rank": [r["fused_mcm_launches"]
                                   for r in mesh_cli["rank_launches"]]},
+        "tp_launches": {
+            name: {"per_rank": m["launches"], "steps": m["steps"],
+                   "sharded_per_forward": m["sharded_launches_per_forward"],
+                   **({"tree_stacked_from_per_net_prev_per_forward":
+                       m["tree_stacked"]["ext_net_launches_per_forward"]}
+                      if "tree_stacked" in m else {})}
+            for name, m in tp["meshes"].items()},
+        "tp_scales": tp_summary(tp["kernel_at_rank_batch"]),
+        "tp_net_axis": tp["net_axis_at_rank_batch"],
         "dtype": "fp32",
         "work": "the eight flagship stages, batch %d, one call each" % BATCH,
         "max_abs_err": max(r["max_abs_err"] for r in f32),
@@ -4432,4 +5220,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [PROCESS_FLAG]:
+        phase_process(*sys.argv[2:4])
+    else:
+        main()

@@ -13,16 +13,20 @@ step, augmentation, routing, the actor loss, TALR and momentum, only
 shallower), at full width on 32x32 inputs, each stage a launch of
 `fused_mcm` on the card:
 
-1. one data-parallel step on `make_mesh(n_data=n)` at batch 8n;
+1. one step at batch 8n on `mpnn_tpu`'s mesh: `make_mesh(n // 2, 2)`
+   (dp x tp) where n is even and at least 4, with the params and
+   velocity placed by `shard_params(model_parallel=True)` at its default
+   min_chan of 64, else `make_mesh(n_data=n)`;
 2. the k_cpt sweep's step on a ('sweep', 'data') mesh, one member a
    rank: 8x(n/8) when n divides by 8, else 4x(n/4), else 2x(n/2), as
    `mpnn_tpu` picks.
 
 Rank 0 prints `mpnn_tpu`'s two OK lines, each naming rank 0's device
-and backend; a rank that fails or a non-finite loss fails the run.
-There is no 'model' axis: `mpnn_tpu`'s dp x tp step (n_model = 2 from
-4 devices) runs here as pure data parallelism until tensor parallelism
-is ported (ROADMAP.md, item A9).
+and backend; a rank that fails or a non-finite loss fails the run. At
+DEPTH 3 (widths 16/16/32) no param is 64 wide, so, as in `mpnn_tpu`'s
+cold plan, the 'model' axis shards nothing here and its ranks replicate
+the step; `chip_smoke.py`'s tp_train phase shards the full-depth
+flagship (stages 4-7) on the card.
 Nothing is cached between runs, so every run is the cold plan."""
 
 import argparse
@@ -62,10 +66,14 @@ def _rank(rank, n, port, device):
     from .models.steps import (Schedules, init_training,
                                make_sweep_train_loop, make_train_step)
     from .parallel import (make_mesh, make_sweep_mesh, multihost,
-                           replicate_tree, shard_sweep_tree)
+                           replicate_tree, shard_params, shard_sweep_tree)
     from .utils.tree import stack_trees
     import torch.distributed as dist
     torch.set_num_threads(1)
+    if device != "cpu":
+        # The 'model' axis's ranks compute the replicated layers each.
+        from . import set_deterministic
+        set_deterministic(True)
     multihost.initialize("127.0.0.1:%d" % port, n, rank, device=device)
     try:
         dev = multihost.local_device(device)
@@ -77,8 +85,12 @@ def _rank(rank, n, port, device):
         x0_tr, y_tr, m_sym = ds.train_arrays
         sched = Schedules(lr=lambda t: 0.01, tau=lambda t: 1.0)
 
-        mesh = make_mesh(n_data=n)
-        trees = replicate_tree(init_training(net, seed=0, device=dev), mesh)
+        mesh = (make_mesh(n // 2, 2) if n % 2 == 0 and n >= 4
+                else make_mesh(n_data=n))
+        p, s, v = replicate_tree(init_training(net, seed=0, device=dev),
+                                 mesh)
+        trees = (shard_params(p, mesh, model_parallel=True), s,
+                 shard_params(v, mesh, model_parallel=True))
         step = make_train_step(net, batch, sched, mesh=mesh)
         *_, c = step(*trees, 0, torch.Generator(dev).manual_seed(0), x0_tr,
                      y_tr, m_sym)

@@ -18,8 +18,11 @@ its operations over the type's peak rate on the tensor cores (fp32 as
 3xTF32: three TF32 products per product at 495 TFLOP/s).
 `sweep_stage_inputs` and `sweep_stage_fns` give the same for a sweep's
 stage: every net at once through fused_mcm's net axis, against `mcm_ref`
-under the same `torch.func.vmap` (cuDNN's grouped convs). The timers need
-a CUDA GPU."""
+under the same `torch.func.vmap` (cuDNN's grouped convs).
+`sharded_scales` and `scale_fns` give it for the launches of a stage
+sharded over a 'model' axis (`fused_mcm_scale`: one scale, a block of
+the output channels, from the whole scale before). The timers need a
+CUDA GPU."""
 
 import statistics
 import subprocess
@@ -212,6 +215,64 @@ def sweep_stage_fns(xin, whs, wvs, bs):
     library = vmapped(mcm_ref)
     return {"": lambda: kernel(wc, vc, bs, xin), "plain_": plain,
             "library_": lambda: library(wc, vc, bs, xin)}
+
+
+def sharded_scales(stages, n_model, index=0):
+    """The launches of `stage_inputs`' stages sharded over a 'model' axis
+    of n_model ranks, as rank `index` makes them: per output scale j,
+    (x_j, this rank's block of w_horz_j, of b_j and of w_vert_{j-1}, the
+    stage's whole output at scale j-1 from `mcm_ref` (None at j = 0), and
+    the block of the whole output at scale j that the launch must give,
+    its operations per example)."""
+    from .ops.kernels import mcm_ref
+    out = []
+    for xs, whs, wvs, bs, _ in stages:
+        L = len(whs)
+        whole = mcm_ref(xs, whs, wvs, bs)
+
+        def block(t):
+            k = t.shape[-1] // n_model
+            return t[..., index * k:(index + 1) * k].contiguous()
+
+        for j in range(L):
+            x = xs[len(xs) - L + j]
+            prev, wv = (whole[j - 1], block(wvs[j - 1])) if j else (None,
+                                                                    None)
+            wh = block(whs[j])
+            h, w = x.shape[1:3]
+            n_ops = h * w * (wh[..., 0].numel() + (0 if wv is None
+                                                   else wv[..., 0].numel())
+                             ) * wh.shape[-1]
+            out.append((x, wh, block(bs[j]), prev, wv, block(whole[j]),
+                        float(n_ops)))
+    return out
+
+
+def scale_cost(x, wh, b, prev, wv, n_ops, dt):
+    """(bytes, flops) of one sharded launch: x, the weights, prev and the
+    bias read once, the output block written once."""
+    esize = 4 if dt == "fp32" else 2
+    n_in = x.numel() + wh.numel() + (0 if prev is None
+                                     else prev.numel() + wv.numel())
+    n_out = x.shape[0] * x.shape[1] * x.shape[2] * wh.shape[-1]
+    return esize * (n_in + n_out) + 4 * b.numel(), 2.0 * n_ops * x.shape[0]
+
+
+def scale_fns(x, wh, b, prev, wv):
+    """{prefix: fn} of one sharded launch: the kernel (`fused_mcm_scale`),
+    its plain version (`mcm_ref` with prev) and the cuDNN conv calls that
+    make (the pool precomputed)."""
+    from .ops.kernels import fused_mcm_scale, mcm_ref
+    from .ops.layers import _pool2, conv_same
+    if prev is None:
+        return {"": lambda: fused_mcm_scale(x, wh, b),
+                "plain_": lambda: mcm_ref([x], [wh], [], [b]),
+                "cudnn_conv_sequence_": lambda: conv_same(x, wh)}
+    pooled = _pool2(prev)
+    return {"": lambda: fused_mcm_scale(x, wh, b, prev, wv),
+            "plain_": lambda: mcm_ref([x], [wh], [wv], [b], prev=prev),
+            "cudnn_conv_sequence_": lambda: conv_same(x, wh) + conv_same(
+                pooled, wv)}
 
 
 def stage_times(xin, whs, wvs, bs, fns=stage_fns):

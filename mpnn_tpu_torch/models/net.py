@@ -47,12 +47,14 @@ class Ctx(Ns):
     caller drew them. `data` is the 'data' axis of a mesh
     (`parallel.mesh.Axis`) whose ranks share the batch, or None: under
     one, train-mode BatchNorm's moments and the loss's batch mean are
-    over the global batch."""
+    over the global batch. `model` is the mesh's 'model' axis, over which
+    the layers gather the output channels of sharded weights
+    (`ops.layers`), or None."""
 
     def __init__(self, train=False, rng=None, tau=1.0, eps=1e-6,
-                 k_cpt=0.0, masks=None, data=None):
+                 k_cpt=0.0, masks=None, data=None, model=None):
         super().__init__(train=train, rng=rng, tau=tau, eps=eps,
-                         k_cpt=k_cpt, masks=masks, data=data)
+                         k_cpt=k_cpt, masks=masks, data=data, model=model)
 
 
 class Rec(Ns):

@@ -106,15 +106,21 @@ def talr_scale_grads(net, grads, p_tr_by_uid, alpha_rtr=1.0, talr=True):
     return out
 
 
-def tree_l2_decay(net, params, grads, p_tr_by_uid):
+def tree_l2_decay(net, params, grads, p_tr_by_uid, model=None):
     """Analytic weight L2 (`ops.config.analytic_l2`): add each decayed
     weight's gradient coeff * 2 * k_l2 * (w - w_eq) and return
     (new_grads, loss_value), where coeff is the node's mean p_tr (the
     sg(p_tr) weighting of the c_mod loss term), or 1 for a node without
     p_tr. Equal to differentiating the c_mod terms of the forward. On the
     packed layout a group's stacks take a (G,) coefficient per template
-    node, each member's own, and the value sums the members' terms."""
-    value = [0.0]
+    node, each member's own, and the value sums the members' terms.
+
+    A weight narrower than its whole width is this rank's block over the
+    'model' axis `model` (`parallel.shard_params`): it decays against its
+    block of w_eq, and its term of the value, a partial sum, is summed
+    over the axis (`parallel.mesh.sum_model`)."""
+    from ..parallel.mesh import model_block, sum_model
+    value = [0.0, 0.0]  # the whole weights' terms, the blocks'
 
     def layer_mod(layer, p, g, coeff, per_member=False):
         out = dict(g)
@@ -123,21 +129,24 @@ def tree_l2_decay(net, params, grads, p_tr_by_uid):
                             for c, pc, gc in
                             zip(layer.comps, p["comps"], g["comps"])]
             return out
-        for name, (k2, weq) in layer.l2_specs().items():
+        for name, (k2, weq, width) in layer.l2_specs().items():
             if k2 == 0.0:
                 continue
             w = p[name]
+            block = w.shape[-1] != width
+            if block and weq is not None:
+                weq = model_block(weq, model)
             diff = w if weq is None else w - weq.to(w.device)
             if per_member:
                 c = _member_scale(coeff, diff)
                 out[name] = g[name] + c * (2.0 * k2) * diff
-                value[0] = value[0] + k2 * torch.sum(
+                term = k2 * torch.sum(
                     coeff * torch.sum(torch.square(diff),
                                       dim=tuple(range(1, diff.dim()))))
             else:
                 out[name] = g[name] + coeff * (2.0 * k2) * diff
-                value[0] = value[0] + coeff * k2 * torch.sum(
-                    torch.square(diff))
+                term = coeff * k2 * torch.sum(torch.square(diff))
+            value[block] = value[block] + term
         return out
 
     def coeff_of(node):
@@ -183,7 +192,10 @@ def tree_l2_decay(net, params, grads, p_tr_by_uid):
                                               params["groups"],
                                               grads["groups"])]}
     del node_mod, layer_mod  # break the closures' cycles (see Net.forward)
-    return new_grads, torch.as_tensor(value[0], dtype=torch.float32)
+    whole, blocks = value
+    if torch.is_tensor(blocks):
+        whole = whole + sum_model(blocks, model)
+    return new_grads, torch.as_tensor(whole, dtype=torch.float32)
 
 
 def momentum_init(params):

@@ -52,7 +52,23 @@ all-reduce sums the gradient and the loss and gathers every node's p_tr
 for TALR and the analytic L2 (`_all_reduce_step`). So a rank takes the
 single-process step at the global batch. A sweep mesh's 'sweep' axis
 splits the sweep's members over ranks, with no collective between
-nets."""
+nets.
+
+A ('data', 'model') mesh's 'model' axis goes into the context beside
+'data' (`Ctx.model`): where the trees are sharded over it
+(`parallel.shard_params(model_parallel=True)`; params and velocity alike,
+state whole), the layers compute this rank's output channels and gather
+them (`ops.layers`), and the ranks along 'model', which share their data
+index and so their rows, run the rest of the step identically. The
+step's all-reduce stays over 'data': a sharded leaf has the same block
+on every rank of a data group. With replicated trees (the CLI's DxM, as
+`mpnn_tpu`'s) nothing is gathered and the ranks along 'model' compute
+the same rows. Since the ranks along 'model' each compute the replicated
+layers' gradients themselves, their replicas stay equal only if those
+computations repeat bit for bit: on CUDA a train step over a 'model'
+axis of several ranks needs `mpnn_tpu_torch.set_deterministic(True)`
+(cuDNN's default backward algorithms sum in a varying order) and
+raises without it (`_check_model_repeats`)."""
 
 import numpy as np
 import torch
@@ -93,6 +109,12 @@ def _data_part(mesh, batch_size):
     return axis, axis.rows(batch_size) + (batch_size,)
 
 
+def _model_of(mesh):
+    """The 'model' axis of a step under `mesh`, or None (no mesh, or a
+    sweep mesh)."""
+    return None if mesh is None else mesh.model
+
+
 def _rows(t, part):
     """This rank's rows of t, drawn for the global batch."""
     return t if part is None else t[part[0]:part[1]]
@@ -121,6 +143,7 @@ def _step_pieces(net, batch_size, schedules, r_shift, presampled,
     k_cpt_static = _hyper(net, "k_cpt", 0.0)
     k_cpt_values = {}  # device -> schedules.k_cpt_sample as a tensor
     axis, part = _data_part(mesh, batch_size)
+    model = _model_of(mesh)
 
     def batch_ctx(t, gen, x0_tr, y_tr, m_sym, k_cpt):
         if presampled:
@@ -141,9 +164,10 @@ def _step_pieces(net, batch_size, schedules, r_shift, presampled,
                                part)]
         elif k_cpt is None:
             k_cpt = k_cpt_static
+        _check_model_repeats(model, xb.device)
         rng, masks = _drop_stream(net, gen, t, xb, part)
         return xb, yb, Ctx(train=True, rng=rng, tau=tau, eps=eps_rte,
-                           k_cpt=k_cpt, masks=masks, data=axis)
+                           k_cpt=k_cpt, masks=masks, data=axis, model=model)
 
     loss_fn = _loss_fn(net, _n_rows(batch_size, part))
 
@@ -162,6 +186,21 @@ def _step_pieces(net, batch_size, schedules, r_shift, presampled,
                 tree_map(lambda _: next(it), params))
 
     return batch_ctx, loss_and_grads
+
+
+def _check_model_repeats(model, device):
+    """Raise unless a train step over the 'model' axis `model` repeats
+    itself on `device`: on CUDA, with several ranks along the axis, the
+    deterministic algorithms must be on (see the module docstring)."""
+    if (model is not None and model.reduces and device.type == "cuda"
+            and not (torch.are_deterministic_algorithms_enabled()
+                     and torch.backends.cudnn.deterministic)):
+        raise RuntimeError(
+            "a train step over a 'model' axis of %d ranks on CUDA needs "
+            "deterministic algorithms (mpnn_tpu_torch.set_deterministic("
+            "True)): each rank computes the replicated layers' gradients "
+            "itself, and cuDNN's default backward algorithms would let the "
+            "replicas drift apart" % model.size)
 
 
 def _n_rows(batch_size, part):
@@ -273,7 +312,9 @@ def make_train_step(net, batch_size, schedules, r_shift=4, mesh=None):
     loss's mean, TALR's and the analytic L2's means are the global
     batch's, and the gradient is all-reduced, so each rank takes the
     single-process step at the global batch (`_all_reduce_step`). The
-    trees must be replicas (`parallel.replicate_tree`)."""
+    trees must be replicas (`parallel.replicate_tree`), or, over a
+    'model' axis, params and velocity sharded by `parallel.shard_params`
+    from replicas (see the module docstring)."""
     return _train_step_body(net, batch_size, schedules, r_shift, mesh=mesh)
 
 
@@ -285,7 +326,7 @@ def _train_step_body(net, batch_size, schedules, r_shift=4,
     mu = float(_hyper(net, "μ_lrn", 0.9))
     batch_ctx, loss_and_grads = _step_pieces(net, batch_size, schedules,
                                              r_shift, presampled, mesh)
-    scale_grads = _grad_transform(net)
+    scale_grads = _grad_transform(net, _model_of(mesh))
     axis = _data_part(mesh, batch_size)[0]
 
     def step(params, state, vel, t, gen, x0_tr, y_tr, m_sym, k_cpt=None):
@@ -333,9 +374,10 @@ def check_nans(t, **trees):
            len(leaves)))
 
 
-def _grad_transform(net):
+def _grad_transform(net, model=None):
     """scale(params, grads, p_tr_by_uid, c_tot) -> (grads, c_tot): the
-    analytic L2 gradient and loss (`ops.config.analytic_l2`), then TALR
+    analytic L2 gradient and loss (`ops.config.analytic_l2`; its value
+    summed over the 'model' axis `model` for sharded weights), then TALR
     for nets with the expectation optimizer; of one net, so the sweep
     vmaps it over its members."""
     alpha_rtr = float(_hyper(net, "α_rtr", 1.0))
@@ -343,7 +385,8 @@ def _grad_transform(net):
 
     def scale(params, grads, p_tr_by_uid, c_tot):
         if ops_config.analytic_l2:
-            grads, c_l2 = tree_l2_decay(net, params, grads, p_tr_by_uid)
+            grads, c_l2 = tree_l2_decay(net, params, grads, p_tr_by_uid,
+                                        model)
             c_tot = c_tot + c_l2
         if net.uses_expectation_optimizer:
             grads = talr_scale_grads(net, grads, p_tr_by_uid,
@@ -353,18 +396,19 @@ def _grad_transform(net):
     return scale
 
 
-def _eval_batch_fn(net, batch_size):
+def _eval_batch_fn(net, batch_size, model=None):
     """eval_batch(params, state, x0b, yb, maskb, tau, k_cpt, rng=None,
     drop=None) -> dict of the per-example stats summed over the examples
     where maskb is 1 (padding rows carry 0). rng is the batch's Dropout
-    stream and drop its masks (`_split_sums`), or None."""
+    stream and drop its masks (`_split_sums`), or None; `model` is the
+    'model' axis of sharded params."""
     eps_rte = float(_hyper(net, "ϵ", 1e-6))
 
     @torch.no_grad()
     def eval_batch(params, state, x0b, yb, maskb, tau, k_cpt, rng=None,
                    drop=None):
         ctx = Ctx(train=False, rng=rng, tau=tau, eps=eps_rte, k_cpt=k_cpt,
-                  masks=drop)
+                  masks=drop, model=model)
         recs, _ = net.forward(params, state, x0b, yb, ctx)
         net.route_for_stats(recs, batch_size, ctx)
         stats = state_stats(net, recs, yb)
@@ -648,10 +692,11 @@ def make_eval_split_fn(net, batch_size, mesh=None):
     every evaluation draws fresh masks. For other nets eval_key is
     ignored. With a mesh, each rank evaluates its rows of every batch
     (B = batch_size) and the sums are all-reduced over the 'data' axis
-    once per split: every rank returns the whole split's sums."""
+    once per split: every rank returns the whole split's sums. Params
+    sharded over the mesh's 'model' axis are gathered as in the step."""
     axis, part = _data_part(mesh, batch_size)
-    return _split_sums(net, _eval_batch_fn(net, _n_rows(batch_size, part)),
-                       axis, part)
+    return _split_sums(net, _eval_batch_fn(net, _n_rows(batch_size, part),
+                                           _model_of(mesh)), axis, part)
 
 
 def make_sweep_eval_split_fn(net, batch_size, mesh=None):

@@ -6,7 +6,12 @@
     out[0] = b0 + conv3x3(x[S-L], wh0)
     out[j] = b_j + conv3x3(x[S-L+j], wh_j) + conv3x3(pool2(out[j-1]), wv_{j-1})
 
-with SAME padding, fp32 accumulation and outputs in the compute dtype. On
+with SAME padding, fp32 accumulation and outputs in the compute dtype.
+`fused_mcm_scale` computes one scale with an external `prev` in place of
+out[j-1]: the form the 'model' axis needs (`parallel.mesh`), where a
+rank's launch writes its block of the output channels from the whole,
+gathered, output of the scale before (`prev` and `Cprev` are the
+kernel's own arguments, apart from `x` and `Cout`). On
 CUDA tensors it launches the hand-written kernel of `csrc/fused_mcm.cu`
 (built with nvcc and bound with ctypes by `_build.py`), one launch per
 output scale, coarse-ward, on the current stream. On CPU tensors it
@@ -54,7 +59,8 @@ import torch
 from . import _build, config
 from .layers import _conv_nhwc, _pool2
 
-__all__ = ["fused_mcm", "mcm_ref", "_pack_w", "MCM_STAGE"]
+__all__ = ["fused_mcm", "fused_mcm_scale", "mcm_ref", "_pack_w",
+           "MCM_STAGE"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,22 +72,28 @@ def _pack_w(w):
     return w.reshape(kh * kw * ci, co)
 
 
-def mcm_ref(xs, whs, wvs, bs, dtype=None):
+def mcm_ref(xs, whs, wvs, bs, dtype=None, prev=None):
     """Plain PyTorch version of the stage (the counterpart of `mcm_xla`):
     cuDNN / CPU convs plus a max-pool, under the compute dtype policy, or
-    with the inputs and weights cast to `dtype` where one is given."""
+    with the inputs and weights cast to `dtype` where one is given. With
+    `prev`, the first output scale also takes conv3x3(pool2(prev),
+    wvs[0]), and wvs has L entries (`fused_mcm_scale`'s plain version at
+    L = 1)."""
     L = len(whs)
     cast = config.cast_compute if dtype is None else (
         lambda t: t.to(dtype))
     kept = xs[len(xs) - L:]
+    vert = list(wvs) if prev is not None else [None] + list(wvs)
 
     def conv(x, w):
         return _conv_nhwc(cast(x), cast(w))
 
-    out0 = conv(kept[0], whs[0])
-    outs = [out0 + bs[0].to(out0.dtype)]
-    for j in range(1, L):
-        oj = conv(kept[j], whs[j]) + conv(_pool2(outs[j - 1]), wvs[j - 1])
+    outs = []
+    for j in range(L):
+        oj = conv(kept[j], whs[j])
+        below = outs[j - 1] if j else prev
+        if below is not None:
+            oj = oj + conv(_pool2(below), vert[j])
         outs.append(oj + bs[j].to(oj.dtype))
     return outs
 
@@ -109,20 +121,40 @@ def fused_mcm(xs, whs, wvs, bs, supp):
            and len(xs) >= L, "expected L horizontal weights, L-1 vertical "
            "weights, L biases and at least L input scales")
     kept = list(xs[len(xs) - L:])
-    return list(_FusedMCM.apply(L, supp, 0, (), *kept, *whs, *wvs, *bs))
+    return list(_FusedMCM.apply(L, supp, 0, (), False, *kept, *whs, *wvs,
+                                *bs))
 
 
-def _split(L, tensors):
-    """(kept xs, whs, wvs, bs) from the flat tuple `_FusedMCM` takes."""
+def fused_mcm_scale(x, wh, b, prev=None, wv=None, supp=3):
+    """One output scale of a stage in one launch: b + conv3x3(x, wh), plus
+    conv3x3(pool2(prev), wv) where `prev` (the scale before, at twice x's
+    height and width) is given; the kernel on CUDA tensors, `mcm_ref` on
+    CPU tensors, with the gradient of `mcm_ref` on both. Through the same
+    operator as `fused_mcm`, so remat policies and `torch.export` see one
+    node a scale."""
+    _check((prev is None) == (wv is None), "prev and wv go together")
+    if prev is None:
+        return _FusedMCM.apply(1, supp, 0, (), False, x, wh, b)[0]
+    return _FusedMCM.apply(1, supp, 0, (), True, x, wh, wv, b, prev)[0]
+
+
+def _split(L, tensors, ext=False):
+    """(kept xs, whs, wvs, bs, prev) from the flat tuple `_FusedMCM`
+    takes: L - 1 vertical weights and prev None, or with ext (an external
+    prev, last) L vertical weights."""
+    n_v = L - 1 + ext
     return (list(tensors[:L]), list(tensors[L:2 * L]),
-            list(tensors[2 * L:3 * L - 1]), list(tensors[3 * L - 1:]))
+            list(tensors[2 * L:2 * L + n_v]),
+            list(tensors[2 * L + n_v:3 * L + n_v]),
+            tensors[3 * L + n_v] if ext else None)
 
 
-def _ref_stage(L, n_nets, batched):
+def _ref_stage(L, n_nets, batched, ext=False):
     """The stage through `mcm_ref` on the flat tensors: of one net, or
     (n_nets) of every net, `torch.func.vmap` over the batched tensors."""
     def stage(*tensors):
-        return tuple(mcm_ref(*_split(L, tensors)))
+        *parts, prev = _split(L, tensors, ext)
+        return tuple(mcm_ref(*parts, prev=prev))
 
     if not n_nets:
         return stage
@@ -133,32 +165,34 @@ def _ref_stage(L, n_nets, batched):
 class _FusedMCM(torch.autograd.Function):
     """Forward: the kernel (CUDA) or `mcm_ref` (CPU), of one net or, with
     n_nets > 0, of n_nets nets (the tensors flagged in `batched` carry
-    them on a leading axis; the others are shared). Backward:
+    them on a leading axis; the others are shared); with ext, the first
+    scale takes an external prev (`fused_mcm_scale`). Backward:
     `torch.func.vjp` of `mcm_ref` on the saved inputs (vmapped over the
     nets). The lists go in flattened, as `apply` takes tensors only as
     positional arguments."""
 
     @staticmethod
-    def forward(L, supp, n_nets, batched, *tensors):
+    def forward(L, supp, n_nets, batched, ext, *tensors):
         _device_of(tensors)
         cdt = config.compute_dtype or torch.float32
         return tuple(MCM_STAGE(list(tensors), L, supp, n_nets,
-                               list(batched) or [False] * len(tensors), cdt))
+                               list(batched) or [False] * len(tensors), cdt,
+                               ext))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        L, _, n_nets, batched, *tensors = inputs
-        ctx.L, ctx.n_nets, ctx.batched = L, n_nets, batched
+        L, _, n_nets, batched, ext, *tensors = inputs
+        ctx.L, ctx.n_nets, ctx.batched, ctx.ext = L, n_nets, batched, ext
         ctx.save_for_backward(*tensors)
 
     @staticmethod
-    def vmap(info, in_dims, L, supp, n_nets, batched, *tensors):
+    def vmap(info, in_dims, L, supp, n_nets, batched, ext, *tensors):
         """One vmap level: its width n becomes the net axis (n_nets = 0)
         or multiplies into it (n_nets > 0, the level outside a vmap that
         already made one), and the Function is re-entered on the level
         below, so every level folds into one launch. A tensor batched at
         only one of the two is expanded over the other."""
-        n, dims = info.batch_size, in_dims[4:]
+        n, dims = info.batch_size, in_dims[5:]
         moved, flags = [], []
         for t, d, b in zip(tensors, dims, batched or [False] * len(dims)):
             if d is not None:
@@ -172,16 +206,16 @@ class _FusedMCM(torch.autograd.Function):
             moved.append(t)
             flags.append(d is not None or b)
         outs = _FusedMCM.apply(L, supp, n * max(n_nets, 1), tuple(flags),
-                               *moved)
+                               ext, *moved)
         if n_nets:
             outs = tuple(o.unflatten(0, (n, n_nets)) for o in outs)
         return tuple(outs), (0,) * L
 
     @staticmethod
     def backward(ctx, *gs):
-        need = ctx.needs_input_grad[4:]
+        need = ctx.needs_input_grad[5:]
         saved = ctx.saved_tensors
-        stage = _ref_stage(ctx.L, ctx.n_nets, ctx.batched)
+        stage = _ref_stage(ctx.L, ctx.n_nets, ctx.batched, ctx.ext)
 
         def wrt_needed(*wrt):
             it = iter(wrt)
@@ -190,7 +224,7 @@ class _FusedMCM(torch.autograd.Function):
         _, vjp = torch.func.vjp(wrt_needed, *[t for t, n in zip(saved, need)
                                               if n])
         grads = iter(vjp(gs))
-        return (None,) * 4 + tuple(next(grads) if n else None for n in need)
+        return (None,) * 5 + tuple(next(grads) if n else None for n in need)
 
 
 def _padded_stride(per, esize):
@@ -232,18 +266,20 @@ def _device_of(tensors):
 
 @torch.library.custom_op("mpnn_tpu_torch::mcm_stage", mutates_args=())
 def _mcm_stage(tensors: List[torch.Tensor], L: int, supp: int, n_nets: int,
-               batched: List[bool], dtype: torch.dtype) -> List[torch.Tensor]:
+               batched: List[bool], dtype: torch.dtype,
+               ext: bool = False) -> List[torch.Tensor]:
     """The stage's forward as an operator: the flat tensors of
     `_FusedMCM`, the outputs in `dtype` (`_forward`)."""
-    return _forward(*_split(L, tensors), supp, dtype, n_nets=n_nets,
-                    batched=batched)
+    *parts, prev = _split(L, tensors, ext)
+    return _forward(*parts, supp, dtype, n_nets=n_nets, batched=batched,
+                    prev=prev)
 
 
 @_mcm_stage.register_fake
-def _(tensors, L, supp, n_nets, batched, dtype):
+def _(tensors, L, supp, n_nets, batched, dtype, ext=False):
     """Empty outputs of the stage's shapes: (B, H, W, Cout) per output
     scale, (n_nets, B, H, W, Cout) with a net axis."""
-    kept, whs, _, _ = _split(L, tensors)
+    kept, whs, _, _, _ = _split(L, tensors, ext)
     lead = (n_nets,) if n_nets else ()
     outs = []
     for x, b, w in zip(kept, batched, whs):
@@ -256,25 +292,31 @@ def _(tensors, L, supp, n_nets, batched, dtype):
 MCM_STAGE = torch.ops.mpnn_tpu_torch.mcm_stage.default
 
 
-def _forward(kept, whs, wvs, bs, supp, cdt, n_nets=0, batched=None):
+def _forward(kept, whs, wvs, bs, supp, cdt, n_nets=0, batched=None,
+             prev=None):
     """The stage's outputs in the compute dtype `cdt`, without autograd:
     `mcm_ref` if every tensor is on the CPU, else the kernel, one launch
-    per output scale.
+    per output scale. With `prev` (last in `batched`'s order), the first
+    scale takes it in place of an output of its own, and wvs has L
+    entries.
 
     With n_nets = N (under vmap), the tensors flagged in `batched` carry
     the nets on a leading axis and the others are shared by every net; the
     outputs carry the nets first. On CUDA each scale is one launch of the
     kernel's net axis; on the CPU `mcm_ref` runs on each net's slice."""
     L = len(whs)
-    tensors = kept + whs + wvs + bs
+    ext = prev is not None
+    tensors = kept + whs + wvs + bs + ([prev] if ext else [])
     batched = batched or [False] * len(tensors)
     dev = _device_of(tensors)
     if dev.type == "cpu":
         if not n_nets:
-            return mcm_ref(kept, whs, wvs, bs, cdt)
-        per_net = [mcm_ref(*_split(L, [t[i] if b else t for t, b in
-                                       zip(tensors, batched)]), cdt)
-                   for i in range(n_nets)]
+            return mcm_ref(kept, whs, wvs, bs, cdt, prev=prev)
+        per_net = []
+        for i in range(n_nets):
+            *parts, p = _split(L, [t[i] if b else t for t, b in
+                                   zip(tensors, batched)], ext)
+            per_net.append(mcm_ref(*parts, cdt, prev=p))
         return [torch.stack(o) for o in zip(*per_net)]
     _check(supp == 3, "the kernel's taps are compiled for 3x3 (supp=%r)"
            % (supp,))
@@ -283,11 +325,16 @@ def _forward(kept, whs, wvs, bs, supp, cdt, n_nets=0, batched=None):
         _check(x.dtype in _DTYPE_CODE, "input dtype %s not supported"
                % x.dtype)
         _check(b or x.is_contiguous(), "inputs must be contiguous NHWC")
+    if ext:
+        _check(batched[-1] or prev.is_contiguous(),
+               "prev must be contiguous NHWC")
     tensors = [t.to(cdt) for t in kept] + [
         t.to(cdt).contiguous() for t in whs + wvs] + [
-        t.to(torch.float32).contiguous() for t in bs]
-    kept, whs, wvs, bs = _split(L, [_net_slices(t, b)
-                                    for t, b in zip(tensors, batched)])
+        t.to(torch.float32).contiguous() for t in bs] + (
+        [prev.to(cdt)] if ext else [])
+    kept, whs, wvs, bs, prev = _split(L, [_net_slices(t, b) for t, b in
+                                          zip(tensors, batched)], ext)
+    vert = wvs if ext else [None] + wvs
 
     B = kept[0][2][0]
     N = max(n_nets, 1)
@@ -304,17 +351,19 @@ def _forward(kept, whs, wvs, bs, supp, cdt, n_nets=0, batched=None):
                "of 4, got %s" % (j, Cin, wshape))
         _check(bshape == (Cout,), "b_%d: expected (%d,), got %s"
                % (j, Cout, bshape))
-        if j > 0:
-            prev, s_prev, pshape = outs[j - 1]
-            _check(pshape[1] == 2 * H and pshape[2] == 2 * W,
-                   "scale %d is %dx%d but scale %d pools to %dx%d"
-                   % (j, H, W, j - 1, pshape[1] // 2, pshape[2] // 2))
+        below = outs[j - 1] if j else prev
+        if below is not None:
+            p, s_prev, pshape = below
+            _check(len(pshape) == 4 and pshape[0] == B
+                   and pshape[1] == 2 * H and pshape[2] == 2 * W,
+                   "scale %d is %dx%d but the scale before pools to %s"
+                   % (j, H, W, pshape))
             Cprev = pshape[-1]
-            wv, s_wv, vshape = wvs[j - 1]
+            wv, s_wv, vshape = vert[j]
             _check(vshape == (3, 3, Cprev, Cout),
-                   "w_vert_%d: expected (3, 3, %d, %d), got %s"
-                   % (j - 1, Cprev, Cout, vshape))
-            prev_ptr, wv_ptr = prev.data_ptr(), wv.data_ptr()
+                   "w_vert for scale %d: expected (3, 3, %d, %d), got %s"
+                   % (j, Cprev, Cout, vshape))
+            prev_ptr, wv_ptr = p.data_ptr(), wv.data_ptr()
         else:
             Cprev, prev_ptr, wv_ptr, s_prev, s_wv = 0, None, None, 0, 0
         oshape = (B, H, W, Cout)

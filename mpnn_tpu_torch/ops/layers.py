@@ -23,7 +23,19 @@ the checkpoint schema (`w_horz_i`, `w_vert_i`, `b_i`, `w`, `b`, `γ`, `β`,
 their `c_err` / `c_mod` work. Routed inference passes None, since eager
 PyTorch would otherwise compute terms that nothing reads. Weight penalties
 are also skipped under `config.analytic_l2`, where the train step adds
-their gradient itself (`l2_specs`)."""
+their gradient itself (`l2_specs`).
+
+Under a mesh's 'model' axis (`ctx.model`, `parallel.mesh`), the layers
+that own params of ndim >= 2 (`LinTrans`, `Conv`, `MultiscaleConvMax`)
+may get this rank's block of a weight's output channels
+(`parallel.shard_params`): a layer tells a block from a whole weight by
+its trailing width against the width it was built with. It then
+computes this rank's channels from its inputs passed through
+`model_input` (whose backward sums their gradient over the axis),
+gathers them whole (`gather_model`) and adds the whole bias after the
+gather, so the bias's gradient is the single process's on every rank;
+the penalty of a block is a partial sum, made whole with `sum_model`.
+Every other layer sees whole activations."""
 
 import math
 import unicodedata
@@ -126,6 +138,51 @@ def _bias_add(out, b):
     return out + b.to(out.dtype)
 
 
+def _model_axis(ctx, layer, width, built):
+    """The 'model' axis of a call whose weight is a block `width` wide of
+    the `built` width: ctx.model, which must split it in that ratio."""
+    axis = getattr(ctx, "model", None)
+    if axis is None or not axis.reduces or width * axis.size != built:
+        raise ValueError(
+            "%s: a weight %d wide where the layer was built %d wide needs "
+            "a 'model' axis that splits it (got %s)"
+            % (layer.name, width, built,
+               None if axis is None else "%d ranks" % axis.size))
+    return axis
+
+
+def _sq_sum(t):
+    return torch.sum(torch.square(t))
+
+
+def _dense_gathered(layer, op, x, w, b, ctx):
+    """(op(x, w) + b, model axis) of a LinTrans or Conv: where w is a
+    block of its output channels over ctx.model, x enters through
+    `model_input` and the product is gathered whole before the bias; the
+    axis is None for a whole w."""
+    n_chan = layer.hypers.n_chan
+    if w.shape[-1] == n_chan:
+        return _bias_add(op(x, w), b), None
+    from ..parallel.mesh import gather_model, model_input
+    axis = _model_axis(ctx, layer, w.shape[-1], n_chan)
+    x, = model_input([x], axis)
+    return _bias_add(gather_model(op(x, w), axis), b), axis
+
+
+def _dense_penalty(layer, w, axis):
+    """k_l2 * ||w - w_eq||², summed over the 'model' axis for a block
+    (its slice of w_eq)."""
+    if axis is None:
+        # w_eq is 0 unless res: skip the subtraction (and its
+        # host-to-device copy) where it changes nothing.
+        d = w - layer._w_eq.to(w.device) if layer.hypers.res else w
+        return layer.hypers.k_l2 * _sq_sum(d)
+    from ..parallel.mesh import model_block, sum_model
+    d = (w - model_block(layer._w_eq, axis).to(w.device)
+         if layer.hypers.res else w)
+    return layer.hypers.k_l2 * sum_model(_sq_sum(d), axis)
+
+
 ################################################################################
 # Core layer class
 ################################################################################
@@ -146,9 +203,10 @@ class Layer:
         self.n_ops = 0.0
 
     def l2_specs(self):
-        """param name -> (k_l2, w_eq) for weights whose c_mod is the L2
-        penalty against w_eq (None means zero); read by the analytic-L2
-        update (models/optim.py:tree_l2_decay)."""
+        """param name -> (k_l2, w_eq, width) for weights whose c_mod is
+        the L2 penalty against w_eq (None means zero), `width` being the
+        weight's whole trailing (output-channel) width; read by the
+        analytic-L2 update (models/optim.py:tree_l2_decay)."""
         return {}
 
     def build(self, x_shape):
@@ -195,18 +253,17 @@ class LinTrans(Layer):
 
     def apply(self, params, state, x, y, ctx):
         w = params["w"]
-        out = _bias_add(_matmul(x.reshape(x.shape[0], -1), w), params["b"])
+        out, axis = _dense_gathered(self, _matmul,
+                                    x.reshape(x.shape[0], -1), w,
+                                    params["b"], ctx)
         if y is None or config.analytic_l2:
             return out, state, Aux()
-        # w_eq is 0 unless res: skip the subtraction (and its host-to-device
-        # copy) where it changes nothing.
-        d = w - self._w_eq.to(w.device) if self.hypers.res else w
-        c_mod = self.hypers.k_l2 * torch.sum(torch.square(d))
-        return out, state, Aux(c_mod=c_mod)
+        return out, state, Aux(c_mod=_dense_penalty(self, w, axis))
 
     def l2_specs(self):
         return {"w": (float(self.hypers.k_l2),
-                      self._w_eq if self.hypers.res else None)}
+                      self._w_eq if self.hypers.res else None,
+                      self.hypers.n_chan)}
 
 
 class Conv(Layer):
@@ -240,16 +297,15 @@ class Conv(Layer):
 
     def apply(self, params, state, x, y, ctx):
         w = params["w"]
-        out = _bias_add(conv_same(x, w), params["b"])
+        out, axis = _dense_gathered(self, conv_same, x, w, params["b"], ctx)
         if y is None or config.analytic_l2:
             return out, state, Aux()
-        d = w - self._w_eq.to(w.device) if self.hypers.res else w
-        c_mod = self.hypers.k_l2 * torch.sum(torch.square(d))
-        return out, state, Aux(c_mod=c_mod)
+        return out, state, Aux(c_mod=_dense_penalty(self, w, axis))
 
     def l2_specs(self):
         return {"w": (float(self.hypers.k_l2),
-                      self._w_eq if self.hypers.res else None)}
+                      self._w_eq if self.hypers.res else None,
+                      self.hypers.n_chan)}
 
 
 class Rect(Layer):
@@ -411,7 +467,10 @@ class MultiscaleConvMax(Layer):
     Shapes that `_kernel_eligible` accepts run through `kernels.fused_mcm`
     (the CUDA kernel on CUDA tensors, its plain version on CPU tensors);
     the others through `kernels.mcm_ref`, as `mpnn_tpu` computes them
-    outside its Pallas kernel."""
+    outside its Pallas kernel. With weights sharded over a 'model' axis,
+    each scale is one launch (`kernels.fused_mcm_scale`) of this rank's
+    output channels from the whole scale before, then a gather
+    (`_apply_sharded`)."""
 
     default_hypers = dict(n_chan=(), supp=1, k_l2=0, σ_w=1)
 
@@ -476,21 +535,82 @@ class MultiscaleConvMax(Layer):
         whs = [params[f"w_horz_{j}"] for j in range(L)]
         wvs = [params[f"w_vert_{j}"] for j in range(L - 1)]
         bs = [params[f"b_{j}"] for j in range(L)]
-        if self._kernel_eligible():
+        axes = [None if w.shape[-1] == c
+                else _model_axis(ctx, self, w.shape[-1], c)
+                for w, c in zip(whs, h.n_chan)]
+        if any(axes):
+            out = self._apply_sharded(x, whs, wvs, bs, axes)
+        elif self._kernel_eligible():
             out = fused_mcm([t.contiguous() for t in x], whs, wvs, bs,
                             h.supp)
         else:
             out = mcm_ref(x, whs, wvs, bs)
         if y is None or config.analytic_l2:
             return out, state, Aux()
-        c_mod = h.k_l2 * (sum(torch.sum(torch.square(w)) for w in whs)
-                          + sum(torch.sum(torch.square(w)) for w in wvs))
+        if not any(axes):
+            c_mod = h.k_l2 * (sum(_sq_sum(w) for w in whs)
+                              + sum(_sq_sum(w) for w in wvs))
+            return out, state, Aux(c_mod=c_mod)
+        # Scale j's w_horz and the w_vert into it share its output
+        # channels, so both are blocks or both whole.
+        from ..parallel.mesh import sum_model
+        own = [_sq_sum(whs[j]) + (_sq_sum(wvs[j - 1]) if j else 0.0)
+               for j in range(L)]
+        axis = next(a for a in axes if a is not None)
+        c_mod = h.k_l2 * (
+            sum(o for o, a in zip(own, axes) if a is None)
+            + sum_model(sum(o for o, a in zip(own, axes) if a is not None),
+                        axis))
         return out, state, Aux(c_mod=c_mod)
+
+    def _apply_sharded(self, x, whs, wvs, bs, axes):
+        """The stage with some scales' weights sharded over a 'model'
+        axis (axes[j] where scale j's are, else None): per scale one
+        launch from the whole output of the scale before, which for a
+        sharded scale writes this rank's channels (its bias added after
+        the gather, whole) and is gathered whole over the axis; its inputs
+        enter through `model_input`. A stage that takes the kernel
+        refuses a block that is not a multiple of 4 wide, the kernel's
+        group of output channels."""
+        from ..parallel.mesh import gather_model, model_input
+        from .kernels import fused_mcm_scale, mcm_ref
+        L = self._L
+        kept = x[len(x) - L:]
+        kernel = self._kernel_eligible()
+        for j, (w, axis) in enumerate(zip(whs, axes)):
+            if kernel and axis is not None and w.shape[-1] % 4:
+                raise ValueError(
+                    "%s: scale %d's block of %d output channels (%d over %d "
+                    "ranks) is not a multiple of 4, the fused_mcm kernel's "
+                    "group of output channels" % (
+                        self.name, j, w.shape[-1], self.hypers.n_chan[j],
+                        axis.size))
+        outs = []
+        for j, axis in enumerate(axes):
+            prev, wv = (outs[j - 1], wvs[j - 1]) if j else (None, None)
+            xj, b = kept[j], bs[j]
+            if axis is not None:
+                xj, *prev = model_input([xj] + ([prev] if j else []), axis)
+                prev = prev[0] if j else None
+                b = b.new_zeros(whs[j].shape[-1])
+            if kernel:
+                o = fused_mcm_scale(xj.contiguous(), whs[j], b, prev, wv,
+                                    self.hypers.supp)
+            else:
+                o = mcm_ref([xj], [whs[j]], [] if wv is None else [wv], [b],
+                            prev=prev)[0]
+            if axis is not None:
+                o = _bias_add(gather_model(o, axis), bs[j])
+            outs.append(o)
+        return outs
 
     def l2_specs(self):
         k2 = float(self.hypers.k_l2)
-        specs = {f"w_horz_{j}": (k2, None) for j in range(self._L)}
-        specs.update({f"w_vert_{j}": (k2, None) for j in range(self._L - 1)})
+        n_chan = self.hypers.n_chan
+        specs = {f"w_horz_{j}": (k2, None, n_chan[j])
+                 for j in range(self._L)}
+        specs.update({f"w_vert_{j}": (k2, None, n_chan[j + 1])
+                      for j in range(self._L - 1)})
         return specs
 
 

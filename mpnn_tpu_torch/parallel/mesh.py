@@ -15,13 +15,34 @@ list: rank = i0 * n1 + i1.
   is the single-process step at the global batch (`models.steps`).
 - 'sweep' splits a k_cpt sweep's nets: each rank steps its slice of the
   stacked members (`shard_sweep_tree`) with no collective between nets.
-- 'model' (output channels sharded across ranks) is not ported:
-  `make_mesh` refuses n_model > 1.
+- 'model' shards output channels across ranks, as `mpnn_tpu`'s
+  `shard_params(model_parallel=True)` does: a param of ndim >= 2 whose
+  trailing dim divides by the axis' size and is at least `min_chan` wide
+  keeps only this rank's block of that dim (`shard_params`); 1-D params
+  (biases, BatchNorm's γ and β) stay whole. The layers that own such
+  params compute this rank's output channels and gather them whole
+  (`gather_model`), so every layer after a gather, and the loss, run
+  identically on every rank of the axis; a penalty of a sharded weight
+  is a partial sum, made whole with `sum_model`. The ranks along 'model'
+  share their data index, so they take the same rows.
 
-Params, state and velocity are replicas: `replicate_tree` broadcasts
-rank 0's. An axis of one rank has no group and reduces nothing
-(`Axis.reduces`); a process that never called `init_process_group` is a
-mesh of one rank."""
+The collectives over 'model' are differentiable, and the rule of their
+backwards follows from that replication: the gradient that reaches the
+output of a gather is the same on every rank of the axis, so the
+backward of `gather_model` is this rank's block of it, and the backward
+of `sum_model` is the identity. A sum over the ranks in either would
+make the gradients of the sharded weights n_model times too large. The
+one sum is at the other end of a sharded computation: the gradient that
+a rank's channels send back to the (whole) input is only their share of
+it, so the input passes through `model_input`, the identity whose
+backward sums the gradient over the axis (Megatron-LM's "f" beside its
+"g"). Without it the layers before a sharded one would train on a part
+of their gradient.
+
+Params, state and velocity are otherwise replicas: `replicate_tree`
+broadcasts rank 0's. An axis of one rank has no group and reduces
+nothing (`Axis.reduces`); a process that never called
+`init_process_group` is a mesh of one rank."""
 
 import math
 
@@ -31,13 +52,10 @@ import torch.distributed as dist
 from ..utils.tree import tree_leaves, tree_map
 
 __all__ = ["Axis", "Mesh", "make_mesh", "make_sweep_mesh", "replicate_tree",
-           "shard_sweep_tree", "all_reduce_sum", "all_reduce_flat",
-           "batch_mean", "batch_moments", "world", "world_axis"]
-
-MODEL_AXIS_TODO = ("the 'model' axis (tensor parallelism) is not ported "
-                   "yet (ROADMAP.md, item A9: a stage sharded over "
-                   "channels needs a gather between scales inside "
-                   "fused_mcm)")
+           "shard_sweep_tree", "shard_params", "unshard_params",
+           "model_block", "gather_model", "sum_model", "model_input",
+           "all_reduce_sum", "all_reduce_flat", "batch_mean",
+           "batch_moments", "world", "world_axis"]
 
 
 def world():
@@ -85,6 +103,12 @@ class Mesh:
         """The 'data' axis, whose ranks share each step's batch."""
         return self.axes["data"]
 
+    @property
+    def model(self):
+        """The 'model' axis, whose ranks share output channels, or None
+        on a mesh without one (a sweep mesh)."""
+        return self.axes.get("model")
+
 
 def _grid(names, sizes, reduce_over):
     """The Mesh of this rank on a grid of `sizes` (row-major over the
@@ -123,11 +147,13 @@ def world_axis():
 
 
 def make_mesh(n_data=None, n_model=1):
-    """A ('data', 'model') mesh over every rank; by default all on
-    'data'. n_model > 1 raises NotImplementedError (not ported)."""
-    if n_model != 1:
-        raise NotImplementedError(MODEL_AXIS_TODO)
-    return _grid(("data", "model"), (n_data or world()[1], 1), ("data",))
+    """A ('data', 'model') mesh over every rank, rank = i_data * n_model +
+    i_model as `mpnn_tpu` reshapes its device list; by default every rank
+    on 'data'. The 'data' group of a rank is the ranks that share its
+    model index, its 'model' group those that share its data index."""
+    if n_data is None:
+        n_data = world()[1] // n_model
+    return _grid(("data", "model"), (n_data, n_model), ("data", "model"))
 
 
 def make_sweep_mesh(n_sweep=None, n_data=1):
@@ -165,6 +191,124 @@ def shard_sweep_tree(tree, mesh):
     return tree_map(part, tree)
 
 
+def _model_spec(shape, n_model, min_chan):
+    """True where `mpnn_tpu`'s `_model_spec` shards a param of `shape`
+    over a 'model' axis of n_model ranks: ndim >= 2, the trailing dim
+    divisible by n_model and at least min_chan wide."""
+    return (len(shape) >= 2 and shape[-1] % n_model == 0
+            and shape[-1] >= min_chan)
+
+
+def model_block(t, axis):
+    """This rank's block of t's last dim along the 'model' `axis` (a
+    view); t itself where there is no axis or it has one rank."""
+    if axis is None or axis.size == 1:
+        return t
+    lo, hi = axis.rows(t.shape[-1])
+    return t[..., lo:hi]
+
+
+def shard_params(tree, mesh, model_parallel=False, min_chan=64):
+    """A params or velocity tree placed on the mesh, as `mpnn_tpu`'s
+    `shard_params`: with model_parallel and a 'model' axis of several
+    ranks, every leaf that `_model_spec` shards is cut to this rank's
+    block of its trailing dim; the other leaves stay whole. Every leaf is
+    a copy."""
+    axis = mesh.model
+    shard = model_parallel and axis is not None and axis.size > 1
+
+    def put(a):
+        if shard and _model_spec(a.shape, axis.size, min_chan):
+            a = model_block(a, axis)
+        return a.clone(memory_format=torch.contiguous_format)
+
+    return tree_map(put, tree)
+
+
+def unshard_params(tree, mesh, like):
+    """The whole leaves of a tree that `shard_params` sharded (the
+    counterpart of `np.asarray` on a sharded `jax.Array`): each leaf
+    narrower than its counterpart in `like` (a tree of the whole shapes,
+    the start's params, say) gathered over the 'model' axis in rank
+    order; the others as they are. Collective over the 'model' group."""
+    axis = mesh.model
+
+    def whole(a, ref):
+        if tuple(a.shape) == tuple(ref.shape):
+            return a
+        return all_reduce_flat(axis, [], [a.detach()])[1][0]
+
+    return tree_map(whole, tree, like)
+
+
+class _GatherModel(torch.autograd.Function):
+    """This rank's block of the last dim gathered whole over a 'model'
+    group (a zero-padded all-reduce, `all_reduce_flat`). Backward: this
+    rank's block of the gradient, which every rank of the group holds
+    whole (the module docstring's rule). Its vmap rule gathers the
+    batched tensor whole, as `_AllReduceSum`'s does."""
+
+    @staticmethod
+    def forward(t, axis):
+        return all_reduce_flat(axis, [], [t])[1][0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_block(g, ctx.axis).contiguous(), None
+
+    @staticmethod
+    def vmap(info, in_dims, t, axis):
+        d = in_dims[0]
+        if d is None:
+            return _GatherModel.apply(t, axis), None
+        return _GatherModel.apply(t.movedim(d, 0), axis), 0
+
+
+class _ModelInput(torch.autograd.Function):
+    """The identity on the whole inputs of a computation sharded over a
+    'model' group; backward: the gradients summed over the group (each
+    rank's is its output channels' share), in one all-reduce."""
+
+    @staticmethod
+    def forward(axis, *ts):
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[0]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + tuple(all_reduce_flat(ctx.axis, list(gs))[0])
+
+    @staticmethod
+    def vmap(info, in_dims, axis, *ts):
+        return _ModelInput.apply(axis, *ts), in_dims[1:]
+
+
+def model_input(ts, axis):
+    """The tensors `ts` (a list), as they are, on their way into a
+    computation of this rank's output channels over the 'model' `axis`:
+    their gradient is summed over the axis in the backward (see the
+    module docstring); `ts` itself where the axis reduces nothing."""
+    if axis is None or not axis.reduces:
+        return list(ts)
+    return list(_ModelInput.apply(axis, *ts))
+
+
+def gather_model(t, axis):
+    """t, this rank's block of a last dim sharded over the 'model' `axis`,
+    gathered whole in rank order, with its gradient; t itself where the
+    axis reduces nothing."""
+    if axis is None or not axis.reduces:
+        return t
+    return _GatherModel.apply(t, axis)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over a process group, differentiable: the backward sums the
     gradients over the group too, since each rank's input reaches every
@@ -189,6 +333,29 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, t, group):
         return _AllReduceSum.apply(t, group), in_dims[0]
+
+
+class _SumModel(_AllReduceSum):
+    """A partial sum over a 'model' group made whole: `_AllReduceSum`'s
+    forward, with the identity as its backward (the module docstring's
+    rule)."""
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+    @staticmethod
+    def vmap(info, in_dims, t, group):
+        return _SumModel.apply(t, group), in_dims[0]
+
+
+def sum_model(t, axis):
+    """t, a partial sum over the ranks of the 'model' `axis`, summed,
+    with the identity as its backward; t itself where the axis reduces
+    nothing."""
+    if axis is None or not axis.reduces:
+        return t
+    return _SumModel.apply(t, axis.group)
 
 
 def all_reduce_sum(t, axis):

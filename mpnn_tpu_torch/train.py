@@ -38,13 +38,17 @@ are those of the serial path.
 `scripts/train-nets` does.
 
 Meshes (`parallel`), one process per rank: --mesh auto|DxM trains
-data-parallel over D ranks (M, the 'model' axis, must be 1), or with
---vmap-sweep over a (sweep x data) mesh, each rank training its
-n_nets / S members. In a process that no launcher started, --mesh DxM
-starts the D x M ranks itself (`torch.multiprocessing`, spawn), on one
-card if there is one (over gloo) or on the CPU; --multihost joins the
-ranks a launcher started from its environment (`multihost.initialize`),
-over NCCL where each rank has a card of its own:
+over D x M ranks, data-parallel over D; the M ranks of a data index
+train its rows on replicated params, as `scripts/train-nets --mesh DxM`
+does (`mpnn_tpu`'s CLI builds the 'model' axis but shards no param, so
+neither does this one; `parallel.shard_params(model_parallel=True)`
+shards them where a program asks). With --vmap-sweep the mesh is
+(sweep x data), each rank training its n_nets / S members. In a
+process that no launcher started, --mesh DxM starts the D x M ranks
+itself (`torch.multiprocessing`, spawn), on one card if there is one
+(over gloo) or on the CPU; --multihost joins the ranks a launcher
+started from its environment (`multihost.initialize`), over NCCL where
+each rank has a card of its own:
 
     python -m mpnn_tpu_torch.train synth-ac --net 4 --mesh 2x1 ...
     python -m torch.distributed.run --nproc-per-node 2 \
@@ -70,7 +74,7 @@ the first NaN, naming the step and the leaf.
 Runs on CUDA unless --device cpu is given; there with deterministic
 algorithms (`set_up_device(..., deterministic=True)`, as the other
 training entry points), so a resumed run repeats the uninterrupted one
-bit for bit. Not ported: the 'model' axis."""
+bit for bit."""
 
 import json
 import os
@@ -716,8 +720,10 @@ def _parse(argv):
     parser.add_argument("--mesh", default=None,
                         help="train over a mesh of ranks, one process "
                              "each: 'auto' (every rank on the data axis) "
-                             "or 'DxM' (data x model; M must be 1, the "
-                             "batch must divide by D). With --vmap-sweep "
+                             "or 'DxM' (data x model; the batch must "
+                             "divide by D; the 'model' axis replicates "
+                             "the params, as scripts/train-nets does). "
+                             "With --vmap-sweep "
                              "the axes are (sweep x data): 'auto' puts "
                              "every rank on 'sweep', 'SxD' e.g. 2x1; the "
                              "sweep's nets must divide by S. Without "

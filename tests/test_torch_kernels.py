@@ -185,7 +185,7 @@ def test_fused_mcm_inference_mode_carries_no_graph(monkeypatch):
     calls = []
     plain = kernels.mcm_ref
     monkeypatch.setattr(kernels, "mcm_ref",
-                        lambda *a: calls.append(1) or plain(*a))
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
     with torch.inference_mode():
         out = kernels.fused_mcm(xs, whs, wvs, bs, 3)
     assert len(calls) == 1

@@ -198,10 +198,10 @@ def test_stacked_tails_refused_with_sweep_mesh():
 
 
 def test_model_axis_not_ported():
-    """n_model > 1 raises, naming the roadmap item; a process without a
-    process group is a mesh of one rank."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_mesh(n_data=1, n_model=2)
+    """A process without a process group is a mesh of one rank, and a
+    mesh of more ranks than the run has (on either axis) is refused."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        make_mesh(1, 2)
     m = make_mesh()
     assert m.shape == {"data": 1, "model": 1} and not m.data.reduces
     assert mesh.world() == (0, 1)

@@ -48,9 +48,9 @@ def _port_sweep(kind, init, batches, policy, n_steps):
     calls = [0]
     plain = kernels.mcm_ref
 
-    def counted(*a):
+    def counted(*a, **kw):
         calls[0] += 1
-        return plain(*a)
+        return plain(*a, **kw)
 
     kernels.mcm_ref = counted
     try:

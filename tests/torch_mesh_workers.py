@@ -9,8 +9,9 @@ and returns the ranks' results in rank order. A rank that raises fails
 the call with its traceback.
 
 The nets are the 3-stage chains over 16x16 inputs of
-tests/test_torch_sr_cr.py (`build_chain`) and the small tree of
-tests/test_torch_tree.py (`build_tree`), built from the port's layers
+tests/test_torch_sr_cr.py (`build_chain`), the small tree of
+tests/test_torch_tree.py (`build_tree`) and the dp x tp test net of
+tests/test_parallel.py (`build_tp_net`), built from the port's layers
 only; the tests hold them to the parameter structure of JAX's nets."""
 
 import os
@@ -126,10 +127,42 @@ def build_tree(kind, n_cls=10, **hypers):
                 hypers)
 
 
+def build_tp_net(kind, n_cls=10, **hypers):
+    """tests/test_parallel.py's net, `pyr(rcm([8, 8, 8], reg(10),
+    rcm([8, 8], reg(10))))` in the layers of tests/test_train_e2e.py (a
+    router of an 8-wide LinTrans), as an SR, actor or critic net."""
+    from mpnn_tpu_torch.ops import layers as L
+
+    def router(n_sinks):
+        if n_sinks < 2:
+            return None
+        return L.Chain(name="Router", comps=[
+            L.Select(i=-1), L.LinTrans(n_chan=8, k_l2=K_L2), L.BatchNorm(),
+            L.Rect(), L.LinTrans(n_chan=n_sinks, k_l2=K_L2, σ_w=0)])
+
+    def reg():
+        return L.Chain(name="LogReg", comps=[
+            L.Select(i=-1), L.LinTrans(n_chan=n_cls, k_l2=K_L2),
+            L.Softmax(), L.CrossEntropyError()])
+
+    def rcm(n_chan, *sinks):
+        return L.Chain(name="ReConvMax", sinks=sinks,
+                       router=router(len(sinks)),
+                       comps=[L.MultiscaleConvMax(n_chan=n_chan, supp=3,
+                                                  k_l2=K_L2),
+                              L.MultiscaleBatchNorm(), L.MultiscaleRect()])
+
+    root = L.Chain(name="ToPyramid", sinks=[rcm([8, 8, 8], reg(),
+                                                rcm([8, 8], reg()))],
+                   comps=[L.ToPyramid(n_scales=3)])
+    return _net(kind, root, n_cls, hypers)
+
+
 def build(spec):
     """A net from a picklable spec: (constructor name, kind, kwargs)."""
     name, kind, kw = spec
-    return {"chain": build_chain, "tree": build_tree}[name](kind, **kw)
+    return {"chain": build_chain, "tree": build_tree,
+            "tp": build_tp_net}[name](kind, **kw)
 
 
 def to_np(tree):
@@ -184,6 +217,102 @@ def data_parallel(rank, spec, p, s, batches, data, batch_size, stacked,
         x0, y, m_sym = (torch.as_tensor(a) for a in data)
         tp, ts, tv, cs = train(*start(), 0, 5, x0, y, m_sym, 3)
         out["loop"] = (to_np(tp), to_np(ts), to_np(tv), cs.tolist())
+
+    ds = Dataset(dict(x0_tr=data[0], y_tr=data[1], x0_ts=data[0][:8],
+                      y_ts=data[1][:8], m_sym=data[2]), device="cpu")
+    x0s, ys, masks, _ = ds.padded_split("tr", batch_size)
+    tp, ts, _ = start()
+    ev = steps.make_eval_split_fn(net, batch_size, mesh)
+    sums = ev(tp, ts, x0s, ys, masks, 0.7, K_CPT, 3)
+    out["eval"] = {k: v.double().numpy() for k, v in sums.items()}
+    return out
+
+
+def model_parallel(rank, spec, p, s, batches, batch_size, shape,
+                   min_chan=8, data=None, stacked=False, analytic_l2=False):
+    """One rank of a `shape` = (n_data, n_model) mesh, params and velocity
+    sharded over 'model' (`shard_params(model_parallel=True, min_chan)`),
+    on the CPU; with shape (1, 1), in a process without a group, the
+    single-process run:
+    - "steps": the presampled steps of `batches` from (p, s), as
+      `data_parallel`'s, this rank's rows of each;
+    - "grads": this rank's gradient of the first batch after the step's
+      all-reduce, sharded leaves as its blocks;
+    - "loop" (with data, (x0, y, m_sym)): `make_train_loop` for 2 steps
+      from the same start, augmentation on;
+    - "eval" (with data): `make_eval_split_fn` of the start over the
+      padded training split;
+    - "roundtrip": `unshard_params` of the sharded start equals p.
+    With stacked / analytic_l2, under `ops.config.stacked_tails` /
+    `analytic_l2` (both reset on return). The trees come back whole
+    (`unshard_params`), as numpy; with them the rank's coordinates and
+    the paths of its sharded leaves."""
+    from mpnn_tpu_torch.ops import config
+    config.set_stacked_tails(stacked)
+    config.set_analytic_l2(analytic_l2)
+    try:
+        return _model_parallel(spec, p, s, batches, batch_size, shape,
+                               min_chan, data)
+    finally:
+        config.set_stacked_tails(False)
+        config.set_analytic_l2(False)
+
+
+def _model_parallel(spec, p, s, batches, batch_size, shape, min_chan, data):
+    from mpnn_tpu_torch.data.dataset import Dataset
+    from mpnn_tpu_torch.models import steps
+    from mpnn_tpu_torch.parallel import make_mesh
+    from mpnn_tpu_torch.parallel.mesh import shard_params, unshard_params
+    from mpnn_tpu_torch.utils.serdes import from_numpy_tree
+    from mpnn_tpu_torch.utils.tree import tree_leaves, tree_paths
+    net = build(spec)
+    mesh = make_mesh(*shape)
+    lo, hi = mesh.data.rows(batch_size)
+    whole, _ = from_numpy_tree(p, s, device="cpu")
+    out = {"coords": (mesh.data.index, mesh.model.index)}
+
+    def start():
+        tp, ts = from_numpy_tree(p, s, device="cpu")
+        tv = steps.momentum_init(tp)
+        return (shard_params(tp, mesh, True, min_chan), ts,
+                shard_params(tv, mesh, True, min_chan))
+
+    def unshard(tree):
+        return to_np(unshard_params(tree, mesh, whole))
+
+    tp, ts, tv = start()
+    out["sharded"] = [path for path, a, b in zip(
+        tree_paths(tp), tree_leaves(tp), tree_leaves(whole))
+        if a.shape != b.shape]
+    out["roundtrip"] = [bool(torch.equal(a, b)) for a, b in zip(
+        tree_leaves(unshard_params(tp, mesh, whole)), tree_leaves(whole))]
+    batch_ctx, loss_and_grads = steps._step_pieces(
+        net, batch_size, schedules(), 0, True, mesh)
+    x, y = (torch.as_tensor(a[lo:hi]) for a in batches[0])
+    no_flip = torch.zeros(y.shape[1])
+    xb, yb, ctx = batch_ctx(0, torch.Generator().manual_seed(0), x, y,
+                            no_flip, None)
+    c, _, p_tr, grads = loss_and_grads(tp, ts, xb, yb, ctx)
+    out["grads"] = to_np(steps._all_reduce_step(ctx.data, c, p_tr,
+                                                grads)[2])
+
+    step = steps._train_step_body(net, batch_size, schedules(), r_shift=0,
+                                  presampled=True, mesh=mesh)
+    cs = []
+    for t, (x, y) in enumerate(batches):
+        gen = torch.Generator().manual_seed(0)
+        tp, ts, tv, c = step(tp, ts, tv, t, gen, torch.as_tensor(x[lo:hi]),
+                             torch.as_tensor(y[lo:hi]), no_flip)
+        cs.append(float(c))
+    out["steps"] = (unshard(tp), to_np(ts), unshard(tv), cs)
+    if data is None:
+        return out
+
+    train = steps.make_train_loop(net, batch_size, schedules(),
+                                  sample_tile=2, mesh=mesh)
+    x0, y, m_sym = (torch.as_tensor(a) for a in data)
+    tp, ts, tv, cs = train(*start(), 0, 5, x0, y, m_sym, 2)
+    out["loop"] = (unshard(tp), to_np(ts), unshard(tv), cs.tolist())
 
     ds = Dataset(dict(x0_tr=data[0], y_tr=data[1], x0_ts=data[0][:8],
                       y_ts=data[1][:8], m_sym=data[2]), device="cpu")
