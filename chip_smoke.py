@@ -152,6 +152,22 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
               pass over the padded test split, dense and routed in
               turns; the kernel's count from 0), with the bf16 exits that
               differ from fp32's.
+7d'. frontier -- the card's name and power limit, then the serving
+              frontier (`mpnn_tpu_torch.tools.serving_frontier`) of the
+              trained adaptive chain (results/nets/hybrid-ac-dynkcpt/
+              net.npy) on the rebuilt hybrid.npz at batch 1024 and the 8
+              k_cpts: its fp32 columns through the kernel (launches from 0
+              = 20 x engine calls) against the same through mcm_ref
+              (no launch; probs within 1e-4 where the exits agree;
+              capacities, exits, ops, predicted classes and forced
+              counts outside router near-ties), routed exits equal to
+              dense at every price with no forced exit; then the tool's
+              bf16 run, timed (FRONTIER_ARGS: 3 batches a window, 2
+              passes, b1 and b8 latency at the end prices), launches =
+              20 x its engine calls; then dense_crossover's base rung
+              (the flagship chain, bf16, analytic L2, 10 batches a
+              window): dense and routed img/s, launches = 20 x its
+              forwards; the phase's seconds.
 7e. serving artifacts --
               export_chain: the trained flagship traced with torch.export
               (mpnn_tpu_torch.export) at batch 1024 in bf16 at
@@ -350,7 +366,8 @@ Phases, each reported as one JSON line {"phase", "ok", "elapsed_s", ...}:
 
 Then one {"kernels": [...]} line, the kernel (bf16), its fp32 branch
 (launches on the fp32 training main path) and its net axis (with the
-training main paths' launches in `train_launches`, `sweep_launches` and
+frontier phase's in `frontier_launches`, the training main paths' in
+`train_launches`, `sweep_launches` and
 the CLI path's in `train_cli_launches`, `train_cli_sweep_launches`; the
 tree paths' in `tree_launches` and `tree_sweep_launches`; the stacked
 tails' in `tree_stacked_launches` and `tree_sweep_stacked_launches`, the
@@ -1131,6 +1148,193 @@ def tree_serve_phase(device):
             "windows": N_TREE_WINDOWS,
             "per_k_cpt": per_k, "fused_mcm_launches": launches}, (
         net, params, state, extra["t"], data)
+
+
+FRONTIER_CHECKPOINT = os.path.join(HERE, "results", "nets",
+                                   "hybrid-ac-dynkcpt", "net.npy")
+FRONTIER_ARGS = ["--n-batches", "3", "--measure-passes", "2",
+                 "--latency-prices", "min,max", "--latency-batches", "1,8",
+                 "--latency-calls", "20", "--no-figure"]
+CROSSOVER_BATCHES = 10  # dense_crossover's default --n-batches
+
+
+def frontier_columns_vs_plain(net, params, state, recs, ref_recs, outs,
+                              ref_outs, x0, x_cal):
+    """The fp32 frontier's columns through the kernel against those
+    through mcm_ref, price by price, under compare_fp32's rule: the same
+    capacities unless the calibration batch has a near-tie; on the served
+    batch (dense, and routed where the capacities agree) probs within
+    1e-4 where the exits agree, and the same exits, ops and predicted
+    classes outside near-ties (a class may differ only where mcm_ref's
+    top-2 probs are within 1e-4); forced counts within the near-ties; and
+    routed equal to dense wherever no exit is forced."""
+    from mpnn_tpu_torch.experiments import k_cpts
+    paths = tree_paths(net)
+    rows = []
+    for price, rec, ref in zip(k_cpts, recs, ref_recs):
+        margins = router_margins(net, params, state, [x0], price)
+        # Calibration examples with a near-tie at any switch.
+        cal_ties = int((router_margins(net, params, state, [x_cal], price)
+                        < MARGIN_TIE).any(axis=1).sum())
+        same_caps = rec["capacities"] == ref["capacities"]
+        check(same_caps or cal_ties > 0,
+              "frontier k_cpt %g: capacities %s against mcm_ref's %s"
+              % (price, rec["capacities"], ref["capacities"]))
+        row = {"k_cpt": price, "capacities_equal": same_caps,
+               "calibration_near_ties": cal_ties}
+        modes = [(1, "dense")] + ([(0, "routed")] if same_caps else [])
+        for i, mode in modes:
+            k, r = outs[price][i], ref_outs[price][i]
+            label = "frontier k_cpt %g %s" % (price, mode)
+            near = np.array([(margins[e, paths[x]] < MARGIN_TIE).any()
+                             for e, x in enumerate(r["exit_idx"])])
+            same_exit = k["exit_idx"] == r["exit_idx"]
+            prob_err = float(np.abs(k["probs"] - r["probs"])[same_exit]
+                             .max(initial=0.0))
+            check(prob_err <= 1e-4, "%s: probs differ by %g > 1e-4"
+                  % (label, prob_err))
+            top2 = np.sort(r["probs"], axis=1)[:, -2:]
+            class_tie = top2[:, 1] - top2[:, 0] < 1e-4
+            route_differ = ~same_exit | (k["ops"] != r["ops"])
+            class_differ = ((k["probs"].argmax(1) != r["probs"].argmax(1))
+                            & ~class_tie)
+            bad = (route_differ | class_differ) & ~near
+            check(not bad.any(),
+                  "%s: %d examples differ from mcm_ref outside near-ties"
+                  % (label, int(bad.sum())))
+            forced_diff = int(np.abs(k["forced"] - r["forced"]).sum())
+            check(forced_diff <= int(near.sum()),
+                  "%s: forced differs by %d" % (label, forced_diff))
+            row[mode] = {"max_prob_err": prob_err,
+                         "exit_mismatches": int(route_differ.sum()),
+                         "near_tie_examples": int(near.sum())}
+        check(rec["forced_exits"] > 0 or rec["routed_matches_dense_exits"],
+              "frontier k_cpt %g: no exit forced, yet routed exits differ "
+              "from dense" % price)
+        row.update({k: rec[k] for k in (
+            "capacities", "accuracy", "dense_accuracy", "forced_exits",
+            "mean_ops_per_example", "routed_matches_dense_exits")})
+        row["accuracy_ref"] = ref["accuracy"]
+        rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def counting_engine_calls():
+    """Counts the calls of every routed engine built inside the block,
+    calibration's included: [n]."""
+    from mpnn_tpu_torch.models import infer
+    from mpnn_tpu_torch.tools import serving_frontier as sf
+    calls = [0]
+    real = infer.make_routed_infer_fn
+
+    def counted(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def call(*a):
+            calls[0] += 1
+            return fn(*a)
+        return call
+
+    with mock.patch.object(infer, "make_routed_infer_fn", counted), \
+            mock.patch.object(sf, "make_routed_infer_fn", counted):
+        yield calls
+
+
+def frontier_phase(device, data):
+    """The port's serving frontier (`mpnn_tpu_torch.tools.serving_frontier`)
+    of the trained adaptive chain at batch 1024 on the rebuilt hybrid.npz
+    (`data`): its fp32 columns through the kernel (counted from 0) against
+    the same through mcm_ref (frontier_columns_vs_plain) with 20 launches
+    per engine call (counted by counting_engine_calls); then the tool's
+    bf16 run, timed, with b1 / b8 latency at the end prices; then
+    dense_crossover's base rung (the flagship chain, bf16, analytic L2 as
+    its main sets), dense and routed img/s, its launches counted from 0.
+    Prints the card's name and power limit first."""
+    from mpnn_tpu_torch.data import Dataset
+    from mpnn_tpu_torch.kernel_bench import nvidia_smi
+    from mpnn_tpu_torch.ops import config, kernels
+    from mpnn_tpu_torch.ops.kernels import fused_mcm
+    from mpnn_tpu_torch.tools import dense_crossover as dc
+    from mpnn_tpu_torch.tools import serving_frontier as sf
+    from mpnn_tpu_torch.utils.serdes import read_net
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    per_call = PER_FORWARD["chain"]
+    net, params, state, _ = read_net(FRONTIER_CHECKPOINT, device)
+    ds = Dataset(data, device_put=False)
+    x0_np, y_cls, x_cal_np = sf.serving_batches(ds, BATCH)
+    x0 = torch.as_tensor(x0_np, device=device)
+    x_cal = torch.as_tensor(x_cal_np, device=device)
+
+    config.set_compute_dtype(None)
+    fused_mcm.launches = 0
+    with counting_engine_calls() as calls:
+        recs, _, outs = sf.frontier_columns(
+            sf.Engines(net, params, state), x0, y_cls, x_cal)
+    fp32_launches, fp32_calls = fused_mcm.launches, calls[0]
+    check(fp32_launches == per_call * fp32_calls,
+          "frontier fp32: %d launches for %d engine calls"
+          % (fp32_launches, fp32_calls))
+    with mock.patch.object(kernels, "fused_mcm", _plain_stage):
+        ref_recs, _, ref_outs = sf.frontier_columns(
+            sf.Engines(net, params, state), x0, y_cls, x_cal)
+    check(fused_mcm.launches == fp32_launches,
+          "frontier fp32: the mcm_ref pass launched %d kernels"
+          % (fused_mcm.launches - fp32_launches))
+    fp32 = frontier_columns_vs_plain(net, params, state, recs, ref_recs,
+                                     outs, ref_outs, x0, x_cal)
+
+    analytic_l2 = config.analytic_l2
+    config.set_compute_dtype(torch.bfloat16)
+    try:
+        args = sf.parse_args(["--checkpoint", FRONTIER_CHECKPOINT,
+                              "--batch-size", str(BATCH), *FRONTIER_ARGS])
+        fused_mcm.launches = 0
+        with counting_engine_calls() as calls:
+            run = sf.run(args, net, params, state, ds, device)
+        bf16_launches, bf16_calls = fused_mcm.launches, calls[0]
+        check(bf16_launches == per_call * bf16_calls,
+              "frontier bf16: %d launches for %d engine calls"
+              % (bf16_launches, bf16_calls))
+        for rec in run["records"]:
+            check(rec["images_per_sec"] > 0
+                  and 0 < rec["mean_ops_per_example"]
+                  <= rec["dense_mean_ops_per_example"] * (1 + 1e-6)
+                  and (rec["forced_exits"] > 0
+                       or rec["routed_matches_dense_exits"]),
+                  "frontier bf16 k_cpt %g: bad record" % rec["k_cpt"])
+        # The forward the crossover times (dense_crossover.main's setting).
+        config.set_analytic_l2(True)
+        fused_mcm.launches = 0
+        r = dc.measure(CHECKPOINT, data, batch_size=BATCH,
+                       n_batches=CROSSOVER_BATCHES, device=device)
+        crossover_launches = fused_mcm.launches
+        check(crossover_launches == per_call * r["forward_calls"],
+              "crossover: %d launches for %d forwards"
+              % (crossover_launches, r["forward_calls"]))
+        check(r["calibrated"] is not None,
+              "crossover: the base rung was not calibrated")
+        crossover = dc.row("base", os.path.relpath(CHECKPOINT, HERE), r)
+    finally:
+        config.set_compute_dtype(None)
+        config.set_analytic_l2(analytic_l2)
+    return {"nvidia_smi": smi,
+            "checkpoint": os.path.relpath(FRONTIER_CHECKPOINT, HERE),
+            "dataset": "hybrid.npz rebuilt (synthetic stand-in)",
+            "batch": BATCH, "fp32_vs_plain": fp32,
+            "fp32_launches": fp32_launches,
+            "fp32_engine_calls": fp32_calls,
+            "bf16_args": FRONTIER_ARGS, "bf16_records": run["records"],
+            "bf16_summary": run["summary"],
+            "bf16_launches": bf16_launches,
+            "bf16_engine_calls": bf16_calls,
+            "crossover": crossover, "crossover_n_batches": CROSSOVER_BATCHES,
+            "crossover_launches": crossover_launches,
+            "crossover_forwards": r["forward_calls"],
+            "phase_s": time.perf_counter() - t0}
 
 
 def tree_desc_phase(device, tree):
@@ -4943,6 +5147,12 @@ def main():
     serve_tree, tree = tree_serve_phase(device)
     phase("tree_serve", **serve_tree)
 
+    # 7d'. the serving frontier of the trained adaptive chain (fp32 against
+    # mcm_ref, then bf16 timed with its latency) and the crossover's base
+    # rung, on the rebuilt hybrid.npz; each run's launches counted from 0.
+    frontier = frontier_phase(device, tree[4])
+    phase("frontier", **frontier)
+
     import tempfile
     # Removed at the end: the mesh CLIs started in 7f are checked in 18-19.
     bg_dir = tempfile.TemporaryDirectory()
@@ -5076,6 +5286,13 @@ def main():
         "launches": launches,
         "train_launches": {dt: r["fused_mcm_launches"]
                            for dt, r in train.items()},
+        "frontier_launches": {
+            "fp32_columns": {"launches": frontier["fp32_launches"],
+                             "engine_calls": frontier["fp32_engine_calls"]},
+            "bf16_run": {"launches": frontier["bf16_launches"],
+                         "engine_calls": frontier["bf16_engine_calls"]},
+            "crossover_base": {"launches": frontier["crossover_launches"],
+                               "forwards": frontier["crossover_forwards"]}},
         "train_cli_launches": {"total": cli["fused_mcm_launches"],
                                **{r["run"]: r["launches"]
                                   for r in cli["runs"]}},

@@ -262,24 +262,46 @@ class _BF16:
     names it as a global (`_CompactPickler`) without importing it."""
 
 
+class _BF16Dtype:
+    """Stands for `numpy.dtype(ml_dtypes.bfloat16)`: one instance, so the
+    pickle memoizes it as it memoizes numpy's dtype singleton."""
+
+
+_BF16_DTYPE = _BF16Dtype()
+# numpy's reduction of an array and of the bfloat16 dtype (ndarray and
+# dtype __reduce__, with ml_dtypes' dtype state).
+_RECONSTRUCT = np.zeros(0).__reduce__()[0]
+_BF16_DTYPE_STATE = (3, "<", None, None, None, 2, 2, 64)
+
+
 class _BF16Bits:
-    """The bfloat16 bits of a float array (uint16), pickled as
-    `bits.view(ml_dtypes.bfloat16)`: a bfloat16 array to a reader with
-    ml_dtypes (`mpnn_tpu`'s `read_compact`), the uint16 bits to
+    """The bfloat16 bits of a float array (uint16) and whether the array
+    was Fortran-ordered, pickled as numpy pickles the bfloat16 array
+    (`_CompactPickler`): a bfloat16 array to a reader with ml_dtypes
+    (`mpnn_tpu`'s `read_compact`), the uint16 bits to
     `_CompactUnpickler`."""
 
-    def __init__(self, bits):
-        self.bits = bits
+    def __init__(self, bits, fortran):
+        self.bits, self.fortran = bits, fortran
 
 
 class _CompactPickler(pickle._Pickler):
     """pickle's Python pickler, which lets `save_global` be overridden:
     `_BF16` is written as the global ml_dtypes.bfloat16, which this
-    process need not be able to import."""
+    process need not be able to import. A `_BF16Bits` is written as
+    numpy writes the bfloat16 array, so the stream is the one
+    `pickle.dumps(record, protocol=4)` gives `mpnn_tpu` for its cast
+    record, byte for byte."""
 
     def reducer_override(self, obj):
         if isinstance(obj, _BF16Bits):
-            return obj.bits.view, (_BF16,)
+            # A fresh (0,) each time, as numpy's reduce makes one: a
+            # shared tuple would be memoized where numpy's is not.
+            return (_RECONSTRUCT, (np.ndarray, tuple([0]), b"b"),
+                    (1, obj.bits.shape, _BF16_DTYPE, obj.fortran,
+                     obj.bits.tobytes(order="F" if obj.fortran else "C")))
+        if obj is _BF16_DTYPE:
+            return np.dtype, (_BF16, False, True), _BF16_DTYPE_STATE
         return NotImplemented
 
     def save_global(self, obj, name=None):
@@ -313,7 +335,8 @@ def _floats_to_bf16(obj):
         out = [_floats_to_bf16(v) for v in obj]
         return out if isinstance(obj, list) else tuple(out)
     if isinstance(obj, np.ndarray) and obj.dtype.kind == "f":
-        return _BF16Bits(_bf16_bits(obj))
+        return _BF16Bits(_bf16_bits(obj), bool(
+            obj.flags.f_contiguous and not obj.flags.c_contiguous))
     return obj
 
 
@@ -326,7 +349,9 @@ def write_compact(dirpath, record, *, part_bytes=7 << 20, src_sha=None):
     of an earlier, larger archive at `dirpath` removed. `src_sha` (hex)
     records the hash of the source checkpoint, so re-archiving an
     unchanged source can be skipped (`compact_src_sha`). Both packages'
-    `read_compact` read it. Returns the manifest."""
+    `read_compact` read it, and its files are the ones `mpnn_tpu`'s
+    `write_compact` writes for the record, byte for byte. Returns the
+    manifest."""
     buf = io.BytesIO()
     _CompactPickler(buf, protocol=4).dump(_floats_to_bf16(record))
     blob = zlib.compress(buf.getvalue(), level=6)

@@ -18,6 +18,10 @@ from tests.torch_threads import share_cores  # noqa: F401
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(REPO, "mpnn_tpu_torch")
+# The port's counterparts of the repo's tools (mpnn_tpu_torch/tools/).
+TOOLS = ("serving_frontier", "dense_crossover", "retrain_diverged",
+         "summarize_campaign", "archive_results")
+_TOOL_MODULES = ", ".join("mpnn_tpu_torch.tools." + t for t in TOOLS)
 
 
 def _port_files():
@@ -47,9 +51,10 @@ def test_no_jax_or_mpnn_tpu_imports():
     assert {"mpnn_tpu_torch/parallel/mesh.py",
             "mpnn_tpu_torch/parallel/multihost.py",
             "mpnn_tpu_torch/dryrun.py"} <= rel
+    assert {"mpnn_tpu_torch/tools/%s.py" % t for t in TOOLS} <= rel
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "mpnn_tpu", "flax",
-                                  "optax")]
+                                  "optax", "bench")]
     assert bad == []
 
 
@@ -85,7 +90,7 @@ def test_import_with_jax_blocked():
              "mpnn_tpu_torch.figures, mpnn_tpu_torch.viz, "
              "mpnn_tpu_torch.viz.loading, mpnn_tpu_torch.viz.acc_eff, "
              "mpnn_tpu_torch.viz.nld, mpnn_tpu_torch.viz.routing, "
-             "mpnn_tpu_torch.viz.pres; "
+             "mpnn_tpu_torch.viz.pres, " + _TOOL_MODULES + "; "
              "from mpnn_tpu_torch.ops import (Conv, MaxPool, GlobalMaxPool, "
              "MultiscaleLLN, Dropout, SquaredError, ActivityError, "
              "SuperclassCrossEntropyError); "
@@ -98,15 +103,17 @@ def test_import_with_jax_blocked():
 
 def test_entry_points_import_without_matplotlib():
     """The card's machine has no matplotlib: the package and every
-    training, serving, export and smoke entry point import without it,
-    and none of them pulls in the figures."""
+    training, serving, export, tool and smoke entry point import without
+    it, and none of them pulls in the figures (the serving frontier
+    imports them only to draw)."""
     r = _run("sys.modules['matplotlib'] = None; "
              "import mpnn_tpu_torch, mpnn_tpu_torch.train, "
              "mpnn_tpu_torch.train_adaptive, mpnn_tpu_torch.train_bench, "
              "mpnn_tpu_torch.infer_bench, mpnn_tpu_torch.kernel_bench, "
              "mpnn_tpu_torch.export, mpnn_tpu_torch.export_net, "
              "mpnn_tpu_torch.check_parity, mpnn_tpu_torch.dryrun, "
-             "mpnn_tpu_torch.data.prep, mpnn_tpu_torch.figures, chip_smoke; "
+             "mpnn_tpu_torch.data.prep, mpnn_tpu_torch.figures, chip_smoke, "
+             + _TOOL_MODULES + "; "
              "print(sorted(m for m in sys.modules "
              "if m.startswith('mpnn_tpu_torch.viz')))")
     assert r.returncode == 0, r.stderr
@@ -156,7 +163,10 @@ def test_train_bench_cpu_with_jax_blocked(tmp_path):
     ("train", ["synth-ac", "--n-iter", "20", "--profile-dir",
                "/nonexistent/trace", "--data-root", "/nonexistent"]),
     ("export_net", ["/nonexistent/net.npy", "/nonexistent/net.pt2"]),
-    ("check_parity", ["/nonexistent/net.npy"])])
+    ("check_parity", ["/nonexistent/net.npy"]),
+    ("tools.serving_frontier", ["--checkpoint", "/nonexistent/net.npy",
+                                "--data", "/nonexistent/data.npz"]),
+    ("tools.dense_crossover", ["--json", "/nonexistent/crossover.json"])])
 def test_entry_point_refuses_cpu_unless_asked(entry, args):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
